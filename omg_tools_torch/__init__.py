@@ -1,0 +1,30 @@
+"""omg_tools_torch -- the PyTorch/CUDA port of omg_tools_tpu.
+
+Spline-MPC motion planning: trajectories as B-spline coefficient vectors,
+dynamics and separating-hyperplane collision constraints transcribed on
+spline coefficients, warm-started receding-horizon ALM solves batched over
+thousands of scenarios on one NVIDIA H100.
+
+The port imports torch and numpy, never JAX nor anything of the JAX
+package.  Its entry points run on CUDA unless the caller passes
+``device="cpu"``.  So far it covers the batched p2p_holonomic rollout in
+the compact-arrow structure; ``ROADMAP.md`` lists what is still to port.
+"""
+
+__version__ = "0.1.0"
+
+from .ops.basis import Basis, clamped_basis, clamped_knots
+from .ops.spline import (BSpline, evalspline, running_integral,
+                         definite_integral, sample_spline)
+from .environment.shapes import (Circle, Cylinder, Ring, Polyhedron, Beam,
+                                 RegularPolyhedron, Rectangle, Square, UFO,
+                                 Sphere, Polyhedron3D, RegularPrisma, Cuboid,
+                                 Cube, Plate)
+from .environment.environment import Environment
+from .environment.obstacle import Obstacle
+from .models.base import Vehicle
+from .models.holonomic import Holonomic
+from .problems.problem import Problem
+from .problems.point2point import Point2point, FixedTPoint2point
+from .problems.batch import BatchedP2PRunner
+from .ops.alm import ALMOptions, ALMState

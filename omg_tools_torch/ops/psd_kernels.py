@@ -1,0 +1,126 @@
+"""Batched SPD solves for the ALM Newton step: K1 (``psd_solve``) and K2
+(``psd_solve_multi``), counterparts of the lane-batched Pallas kernels in
+``omg_tools_tpu/ops/pallas_kernels.py`` (``_chol_solve_kernel`` and
+``_chol_solve_multi_kernel``).
+
+A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
+tensors it launches the hand-written Hopper kernel of
+``csrc/chol_solve.cu`` (one warp per system, the factor kept in shared
+memory) and raises on what the kernel does not take.  Each wrapper counts
+its kernel launches in a plain integer attribute, ``launches``.
+
+A system that is not positive definite gives non-finite output -- rsqrt of
+a non-positive pivot -- in both versions, never an error: the ALM's per-lane
+non-finite fallback relies on it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["psd_solve", "psd_solve_multi", "psd_solve_plain",
+           "psd_solve_multi_plain", "chol_solve_plain"]
+
+
+def chol_solve_plain(H, G):
+    """The kernels' arithmetic in tensor ops: H (N, n, n), G (N, n, r) ->
+    X (N, n, r).  Masked right-looking Cholesky in place (only the lower
+    triangle of H is read), then forward and backward substitution."""
+    n = H.shape[-1]
+    L = H.clone()      # the upper triangle is updated but never read
+    for j in range(n):
+        inv = torch.rsqrt(L[:, j, j])
+        L[:, j:, j] = L[:, j:, j] * inv[:, None]
+        s = L[:, j + 1:, j]
+        L[:, j + 1:, j + 1:] -= s[:, :, None] * s[:, None, :]
+    Z = G.clone()
+    for i in range(n):
+        acc = (L[:, i, :i, None] * Z[:, :i]).sum(1)
+        Z[:, i] = (Z[:, i] - acc) / L[:, i, i, None]
+    for i in range(n - 1, -1, -1):
+        acc = (L[:, i + 1:, i, None] * Z[:, i + 1:]).sum(1)
+        Z[:, i] = (Z[:, i] - acc) / L[:, i, i, None]
+    return Z
+
+
+def psd_solve_plain(H, g):
+    """Plain version of K1: H (..., n, n), g (..., n) -> dx (..., n)."""
+    n = H.shape[-1]
+    X = chol_solve_plain(H.reshape(-1, n, n), g.reshape(-1, n, 1))
+    return X.reshape(g.shape)
+
+
+def psd_solve_multi_plain(D, G):
+    """Plain version of K2: D (..., n, n), G (..., n, r) -> X (..., n, r)."""
+    n, r = G.shape[-2], G.shape[-1]
+    X = chol_solve_plain(D.reshape(-1, n, n), G.reshape(-1, n, r))
+    return X.reshape(G.shape)
+
+
+def _check(H, R):
+    for name, t in (("H", H), ("rhs", R)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if H.device != R.device:
+        raise ValueError("H and rhs lie on different devices")
+
+
+def _launch(fn, *args):
+    """Launch through the C entry point; it refuses (cudaErrorInvalidValue)
+    a system too large for its shared-memory layout."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chol_solve kernel launch failed (cudaError {err})")
+
+
+def psd_solve(H, g):
+    """Solve H[b] dx[b] = g[b]: H (..., n, n), g (..., n) -> dx (..., n).
+    K1 on CUDA tensors, its plain version on CPU tensors."""
+    if H.device.type == "cpu" and g.device.type == "cpu":
+        return psd_solve_plain(H, g)
+    n = H.shape[-1]
+    if H.shape[-2] != n or g.shape[-1] != n or H.shape[:-2] != g.shape[:-1]:
+        raise ValueError(f"shape mismatch: H {tuple(H.shape)}, "
+                         f"g {tuple(g.shape)}")
+    _check(H, g)
+    out = torch.empty_like(g)
+    N = g.numel() // n if n else 0
+    if N == 0:
+        return out
+    lib = _build.load("chol_solve")
+    _launch(lib.omg_psd_solve_f32, H.data_ptr(), g.data_ptr(),
+            out.data_ptr(), N, n)
+    psd_solve.launches += 1
+    return out
+
+
+def psd_solve_multi(D, G):
+    """Solve D[b] X[b] = G[b]: D (..., n, n), G (..., n, r) -> X (..., n, r)
+    (the block-arrow step passes (B, k, b, b) tail blocks with (B, k, b,
+    h+1) panels).  K2 on CUDA tensors, its plain version on CPU tensors."""
+    if D.device.type == "cpu" and G.device.type == "cpu":
+        return psd_solve_multi_plain(D, G)
+    n, r = G.shape[-2], G.shape[-1]
+    if D.shape[-1] != n or D.shape[-2] != n or D.shape[:-2] != G.shape[:-2]:
+        raise ValueError(f"shape mismatch: D {tuple(D.shape)}, "
+                         f"G {tuple(G.shape)}")
+    _check(D, G)
+    out = torch.empty_like(G)
+    N = G.numel() // (n * r) if n * r else 0
+    if N == 0:
+        return out
+    lib = _build.load("chol_solve")
+    _launch(lib.omg_psd_solve_multi_f32, D.data_ptr(), G.data_ptr(),
+            out.data_ptr(), N, n, r)
+    psd_solve_multi.launches += 1
+    return out
+
+
+psd_solve.launches = 0
+psd_solve_multi.launches = 0

@@ -1,0 +1,511 @@
+"""Batched MPC rollouts on the card (counterpart of
+``omg_tools_tpu.problems.batch``).
+
+Thousands of receding-horizon point-to-point scenarios advance in lockstep:
+warm-start knot shifts, parameter refresh (vehicle state, obstacle
+prediction), the ALM solve and the ideal plant update all run on the
+runner's device with an explicit batch axis.  The host precomputation --
+AD for row scaling, quadratic detection and the per-phase affine tensors,
+then the family compaction and the arrow partition -- runs once in float64
+on the CPU; its tensors then move to the device.
+
+Scope: FixedT Point2point problems with a Holonomic vehicle, obstacles with
+constant-acceleration motion, ideal plant update, the ``compact-arrow``
+solver structure.  The fused inner-loop kernel, the structure caches and
+the dense/generic structures are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, jacfwd
+from torch.profiler import record_function
+
+from ..ops.alm import ALMState, ALMOptions, make_alm_solver, \
+    detect_quadratic_structure
+from ..ops.compact import build_compact, detect_arrow, resolve_phase
+from .rollout_models import make_rollout_model
+
+__all__ = ["BatchedP2PRunner", "CompactConsts", "resolve_device"]
+
+
+def resolve_device(device=None):
+    """The runner's device: ``None`` means CUDA, which must then exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
+def pin_full_f32():
+    """Full-f32 products: TF32 breaks these ill-conditioned Newton systems
+    (the JAX package pins HIGHEST matmul precision for the same reason)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class CompactConsts(NamedTuple):
+    """The rollout's device tensors in family-compacted form."""
+    CT: dict                    # CompactStructure.device_tensors()
+    lb: torch.Tensor
+    ub: torch.Tensor
+    M: torch.Tensor             # shiftoverknot warm-start transform
+
+
+class BatchedP2PRunner:
+
+    def __init__(self, problem, dtype=torch.float32, alm_options=None,
+                 device=None):
+        """problem: an initialized FixedTPoint2point (its transcription is
+        reused; the problem object is not mutated).  ``alm_options``:
+        optional :class:`ops.alm.ALMOptions` override.  ``device``: None
+        means CUDA (raising when there is none); pass "cpu" explicitly for
+        the CPU."""
+        self.device = resolve_device(device)
+        pin_full_f32()
+        self.problem = problem
+        self.dtype = dtype
+        tr = problem.transcription
+        self.tr = tr
+        p_base = problem.pack_parameters(0.0)
+        frozen = []
+        try:
+            slT, _ = tr.par_slice(problem, "T")
+            frozen = list(range(slT.start, slT.stop))
+        except KeyError:
+            pass
+        Q = detect_quadratic_structure(tr.constraints, tr.n_x,
+                                       torch.as_tensor(p_base),
+                                       f=tr.objective, frozen_idx=frozen)
+        self._Q_raw = None if Q is None else np.asarray(Q)
+        self.structure = "quadratic" if Q is not None else "generic"
+        vehicle = problem.vehicles[0]
+        self.vehicle = vehicle
+        self.n_x = tr.n_x
+        self.n_p = tr.n_p
+
+        self.horizon = problem.options["horizon_time"]
+        self.knot_time = problem.knot_time
+        self.update_time = 0.1
+        self.steps_per_knot = int(round(self.knot_time / self.update_time))
+        dev = dict(dtype=dtype, device=self.device)
+
+        # warm-start shift matrix (applied on knot passage)
+        self.shift_M = torch.as_tensor(
+            tr.spline_shift_matrix(lambda basis: basis.shiftoverknot_T()),
+            **dev)
+
+        def idx(child, name):
+            sl, shape = tr.par_slice(child, name)
+            return np.arange(sl.start, sl.stop), shape
+
+        self.i_t, _ = idx(problem, "t")
+        self.obstacle_idx = []
+        for obstacle in problem.environment.obstacles:
+            if obstacle.options.get("spline_traj", False):
+                raise NotImplementedError(
+                    "spline-trajectory obstacles are not ported to the "
+                    "batched runner yet")
+            try:
+                ix, _ = idx(obstacle, "x")
+                iv, _ = idx(obstacle, "v")
+                ia, _ = idx(obstacle, "a")
+                self.obstacle_idx.append((ix, iv, ia))
+            except KeyError:
+                pass
+
+        sl, shape = tr.var_slice(vehicle, "splines_seg0")
+        self.i_splines = np.arange(sl.start, sl.stop)
+        self.spline_shape = shape  # (n_coeffs, n_spl)
+
+        self.model = make_rollout_model(self)
+        self.i_state0 = self.model.i_state0
+        self.i_input0 = self.model.i_input0
+        self.i_poseT = self.model.i_goal
+
+        self.lb_np, self.ub_np = tr.bounds(0.0)
+        self.lb = torch.as_tensor(self.lb_np, **dev)
+        self.ub = torch.as_tensor(self.ub_np, **dev)
+
+        # per-phase affine tensors for c(p), A(p): for each in-knot phase
+        # the constraint constants/Jacobian are affine in the varying
+        # parameters, so the rollout needs no AD at all
+        self._build_affine_cA()
+
+        # family compaction + block-arrow partition
+        self.compact = None
+        if self.affine_cA and self._Q_raw is not None:
+            con_blocks = [(c.offset, c.rows) for c in tr.layout.constraints]
+            an = self._affine_np
+            self.compact = build_compact(
+                con_blocks, self._Q_raw, an["c0"], an["C1"], an["A0"],
+                an["TA"], an["f0"], an["gf"],
+                row_scale=problem._row_scale, obj_scale=problem._obj_scale,
+                p_cols=an["vsel"])
+            # head: the smallest contiguous span of the vehicle's variable
+            # blocks (from the splines on) whose complement decouples into
+            # pairwise-uncoupled tail blocks; cheapest factorization wins
+            veh_blocks = sorted(
+                (blk for (lbl, _), blk in tr.layout.variables.items()
+                 if lbl == vehicle.label), key=lambda b: b.offset)
+            lo = int(self.i_splines[0])
+            ends = sorted({int(b.offset + b.size) for b in veh_blocks
+                           if b.offset + b.size > lo})
+            best = None
+            for hi in ends:
+                arrow = detect_arrow(self.compact.families, tr.n_x,
+                                     (lo, hi - lo))
+                if arrow is None:
+                    continue
+                h = arrow.head[1]
+                cost = h ** 3 + sum(b ** 3 + 2 * b * b * (h + 1)
+                                    for (_, b) in arrow.blocks)
+                if best is None or cost < best[0]:
+                    best = (cost, arrow)
+            if best is not None:
+                self.compact.arrow = best[1]
+            self.structure = "compact"
+            if self.compact.arrow is not None:
+                self.structure = "compact-arrow"
+        if self.structure != "compact-arrow":
+            raise NotImplementedError(
+                f"structure {self.structure!r}: omg_tools_torch runs the "
+                "compact-arrow structure only so far")
+
+        self._alm_options = alm_options if alm_options is not None \
+            else ALMOptions()
+        self.solver = self.make_solver(self._alm_options)
+        self._consts = None
+
+    def make_solver(self, alm_options):
+        """An ALM solver over this runner's compacted tensors with a custom
+        iteration budget (phase-adaptive rollouts use one per budget)."""
+        problem = self.problem
+        tr = self.tr
+        return make_alm_solver(
+            tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub, alm_options,
+            row_scale=problem._row_scale, obj_scale=problem._obj_scale,
+            compact=self.compact)
+
+    def consts(self):
+        """The rollout's device tensors."""
+        if self._consts is None:
+            self._consts = CompactConsts(
+                self.compact.device_tensors(self.dtype, self.device),
+                self.lb, self.ub, self.shift_M)
+        return self._consts
+
+    def _varying_param_indices(self):
+        """Full-p indices of the parameters that change during a rollout
+        (vehicle state, goal, obstacle states); t, T and shape data stay
+        frozen, so the affine tensors are restricted to these columns."""
+        varying = list(self.model.varying_params())
+        for (ix, iv, ia) in self.obstacle_idx:
+            varying.extend([ix, iv, ia])
+        return np.unique(np.concatenate(varying))
+
+    def _build_affine_cA(self):
+        """Per-phase c0/C1/A0/TA/f0/gf by host AD (float64, CPU) over the
+        varying parameter columns, with an affineness check per phase."""
+        tr = self.tr
+        problem = self.problem
+        g_fn = tr.constraints
+        f_fn = tr.objective
+        n_p = tr.n_p
+        spk = self.steps_per_knot
+        zero = torch.zeros(tr.n_x, dtype=torch.float64)
+        p_base = problem.pack_parameters(0.0)
+        varying = self._varying_param_indices()
+        n_v = len(varying)
+        E = np.zeros((n_p, n_v))
+        E[varying, np.arange(n_v)] = 1.0
+        Et = torch.as_tensor(E)
+        dzero = torch.zeros(n_v, dtype=torch.float64)
+        jac_x = jacfwd(g_fn)
+
+        def g_of_dp(dp, pj):
+            return g_fn(zero, pj + Et @ dp)
+
+        def jx_of_dp(dp, pj):
+            return jacfwd(g_fn)(zero, pj + Et @ dp)
+
+        jac_p_v = jacfwd(g_of_dp)                     # (m, n_v)
+        jac_xp_v = jacfwd(jx_of_dp)                   # (m, n, n_v)
+        grad_f = grad(f_fn)
+        c0s, C1s, A0s, TAs, f0s, gfs = [], [], [], [], [], []
+        ok = self.structure == "quadratic"
+        for ph in range(spk if ok else 0):
+            p_ref = p_base.copy()
+            p_ref[self.i_t] = ph * self.update_time
+            pj = torch.as_tensor(p_ref)
+            pv_ref = p_ref[varying]
+            C1 = jac_p_v(dzero, pj).numpy()
+            c0 = g_fn(zero, pj).numpy() - C1 @ pv_ref
+            TA = jac_xp_v(dzero, pj).numpy()
+            A0 = jac_x(zero, pj).numpy() - TA @ pv_ref
+            gf = grad_f(zero, pj).numpy()
+            f0 = float(f_fn(zero, pj))
+            # validate affineness in the varying parameters
+            rng = np.random.default_rng(ph)
+            p_probe = p_ref.copy()
+            p_probe[varying] += rng.standard_normal(n_v) * 0.1
+            c_pred = c0 + C1 @ p_probe[varying]
+            c_direct = g_fn(zero, torch.as_tensor(p_probe)).numpy()
+            if np.max(np.abs(c_pred - c_direct)) > 1e-4 * (
+                    np.max(np.abs(c_direct)) + 1.0):
+                ok = False
+                break
+            A_pred = A0 + TA @ p_probe[varying]
+            A_direct = jac_x(zero, torch.as_tensor(p_probe)).numpy()
+            if np.max(np.abs(A_pred - A_direct)) > 1e-4 * (
+                    np.max(np.abs(A_direct)) + 1.0):
+                ok = False
+                break
+            c0s.append(c0); C1s.append(C1)
+            A0s.append(A0); TAs.append(TA)
+            f0s.append(f0); gfs.append(gf)
+        self.affine_cA = ok
+        self._affine_np = None
+        if ok:
+            self._vsel = varying
+            self._affine_np = {"c0": np.stack(c0s), "C1": np.stack(C1s),
+                               "A0": np.stack(A0s), "TA": np.stack(TAs),
+                               "f0": np.asarray(f0s), "gf": np.stack(gfs),
+                               "vsel": varying}
+
+    # -- scenario construction (host) -------------------------------------
+    def make_batch(self, starts, goals):
+        """Build (x0, p0, state0) device batches from per-scenario
+        starts/goals (B, n_dim), the obstacles at their initial states.
+        Init guesses: straight-line splines + geometric hyperplane warm
+        starts."""
+        tr = self.tr
+        problem = self.problem
+        vehicle = self.vehicle
+        starts = np.asarray(starts, dtype=np.float64)
+        goals = np.asarray(goals, dtype=np.float64)
+        B = starts.shape[0]
+        n_coef = len(vehicle.basis)
+
+        x0 = np.tile(tr.initial_guess()[None, :], (B, 1))
+        x0[:, self.i_splines] = self.model.init_guess(
+            starts, goals, n_coef).reshape(B, -1)
+
+        p0 = np.tile(problem.pack_parameters(0.0)[None, :], (B, 1))
+        p0 = self.model.batch_params(p0, starts, goals)
+
+        # vectorized geometric hyperplane warm start per (obstacle, scenario)
+        for l, obstacle in enumerate(problem.environment.obstacles):
+            for name_prefix in ("a", "b"):
+                name = f"{name_prefix}_{vehicle.label}_seg0_0{l}"
+                try:
+                    sl, shape = tr.var_slice(problem.environment, name)
+                except KeyError:
+                    continue
+                obs_pos = np.tile(
+                    obstacle.signals["position"][:, -1][None, :], (B, 1))
+                chck, rad = obstacle.shape.get_checkpoints()
+                bbox_lo = chck.min(axis=0)[None, :] + obs_pos
+                bbox_hi = chck.max(axis=0)[None, :] + obs_pos
+                hyp_basis = problem.environment._hyperplane_basis(vehicle)
+                g = hyp_basis.greville()
+                pts = self.model.path_points(starts, goals, g)
+                nearest = np.clip(pts, bbox_lo[:, None, :], bbox_hi[:, None, :])
+                d = pts - nearest
+                nrm = np.linalg.norm(d, axis=-1, keepdims=True)
+                # fallback perpendicular for on-path obstacles: Gram-Schmidt
+                # of the least-aligned axis against the travel direction
+                dirvec = goals - starts
+                dim = dirvec.shape[-1]
+                axis = np.eye(dim)[np.argmin(np.abs(dirvec), axis=-1)]
+                d2 = np.maximum(np.sum(dirvec * dirvec, axis=-1,
+                                       keepdims=True), 1e-12)
+                perp = axis - (np.sum(axis * dirvec, axis=-1,
+                                      keepdims=True) / d2) * dirvec
+                perp /= np.maximum(np.linalg.norm(perp, axis=-1,
+                                                  keepdims=True), 1e-9)
+                d = np.where(nrm > 1e-9, d, perp[:, None, :])
+                a0 = -d / np.maximum(np.linalg.norm(d, axis=-1,
+                                                    keepdims=True), 1e-9)
+                support = (np.einsum("cd,bnd->bnc", chck, a0)
+                           - rad[None, None, :]).min(axis=-1)
+                b0 = support + np.einsum("bnd,bd->bn", a0, obs_pos) - 1e-2
+                if name_prefix == "a":
+                    x0[:, sl.start:sl.stop] = a0.reshape(B, -1)
+                else:
+                    x0[:, sl.start:sl.stop] = b0.reshape(B, -1)
+
+        dev = dict(dtype=self.dtype, device=self.device)
+        return (torch.as_tensor(x0, **dev), torch.as_tensor(p0, **dev),
+                torch.as_tensor(starts, **dev))
+
+    # -- solves and the rollout ---------------------------------------------
+    def init_solver_state(self, x0, p0, consts=None):
+        """Batched cold solve producing the initial warm state."""
+        C = consts if consts is not None else self.consts()
+        ct = resolve_phase(self.compact, C.CT, 0, p0)
+        return self.solver(x0, p0, C.lb, C.ub, ct=ct)
+
+    def rollout_fn(self, n_steps, outer_iter=4, recover_tol=0.3,
+                   rescue_lanes=0, rescue_outer=3, rescue_tol=1e-3,
+                   budgets=None, streak_tol=8e-3):
+        """Return ``rollout(alm_state, p, state, consts=None) ->
+        ((alm_state, p, state), states (B, n_steps, n_dim))`` advancing
+        ``n_steps`` MPC periods on the runner's device.
+
+        ``recover_tol``: lanes whose raw-unit violation exceeds it get a
+        masked warm-start reset at the next step (straight-line spline
+        guess from the current state to the goal, multipliers zeroed,
+        penalty 100); a sustained violation above ``streak_tol`` for 2
+        consecutive steps triggers the same reset.
+
+        ``rescue_lanes``: after each batched solve the worst lanes by
+        violation (ties: lower lane index first, as ``lax.top_k``) are
+        re-solved with ``rescue_outer`` outer rounds -- diverged ones from a
+        fresh guess -- and blended back where the rescue is more feasible.
+        0 disables.
+
+        ``budgets``: ``((hard_outer, hard_inner), (easy_outer,
+        easy_inner))``; the knot-passage step (k % steps_per_knot == 0,
+        k > 0) gets the hard budget.  Overrides ``outer_iter`` when given.
+
+        The returned ``rollout(st, p, state, consts=None, on_step=None)``
+        calls ``on_step(k)``, when given, after step k has been issued."""
+        spk = self.steps_per_knot
+        dt = self.update_time
+        solver = self.solver
+        compact = self.compact
+        s0, s1 = int(self.i_splines[0]), int(self.i_splines[-1]) + 1
+        dev = self.device
+        i_poseT = torch.as_tensor(self.i_poseT, device=dev)
+        i_t = torch.as_tensor(self.i_t, device=dev)
+        model = self.model
+        obstacle_idx = [tuple(torch.as_tensor(i, device=dev) for i in ids)
+                        for ids in self.obstacle_idx]
+        n_coef, n_spl = self.spline_shape
+        horizon = self.horizon
+        # the raw-unit violation drives recovery and rescue (the JAX
+        # runner's recover_metric="raw", which the holonomic bench uses)
+        def trigger_feas(st):
+            return st.feas_raw
+
+        def bmask(mask, a):
+            return mask.reshape((-1,) + (1,) * (a.dim() - 1))
+
+        def with_reset(x, state, goal, mask):
+            """x with the spline block replaced by a fresh guess where
+            ``mask`` is set."""
+            reset = model.reset_guess(state, goal, n_coef, x.dtype)
+            x_reset = x.clone()
+            x_reset[:, s0:s1] = reset.reshape(x.shape[0], -1)
+            return torch.where(mask[:, None], x_reset, x)
+
+        def _solve(solver_fn, C, st_in, x_warm, p, phase, n_outer):
+            ct = resolve_phase(compact, C.CT, phase, p)
+            return solver_fn(x_warm, p, C.lb, C.ub, state0=st_in,
+                             outer_iter=n_outer, ct=ct)
+
+        def solve_step(solver_fn, n_outer, C, carry, k):
+            st, p, state, streak = carry
+            phase = k % spk
+            # knot passage: shift the warm start
+            x_warm = st.x @ C.M.T if (phase == 0 and k > 0) else st.x
+            # masked divergence recovery: a hard violation, or a soft one
+            # sustained for 2 consecutive steps
+            bad = (trigger_feas(st) > recover_tol) | (streak >= 2)
+            x_warm = with_reset(x_warm, state, p[:, i_poseT], bad)
+            lam_warm = torch.where(bad[:, None], torch.zeros_like(st.lam),
+                                   st.lam)
+            rho_warm = torch.where(bad, torch.full_like(st.rho, 100.0),
+                                   st.rho)
+            p = p.clone()
+            p[:, i_t] = phase * dt
+            inf = torch.full_like(st.feas, float("inf"))
+            st_in = st._replace(x=x_warm, lam=lam_warm, rho=rho_warm,
+                                feas=inf, stat=inf,
+                                n_iter=torch.zeros_like(st.n_iter))
+            st = _solve(solver_fn, C, st_in, x_warm, p, phase, n_outer)
+            streak = torch.where(bad, torch.zeros_like(streak), streak)
+            streak = torch.where(trigger_feas(st) > streak_tol, streak + 1,
+                                 torch.zeros_like(streak))
+            return st, p, state, streak
+
+        def rescue(C, st, p, state, phase):
+            """Re-solve the worst lanes; keep whichever iterate is more
+            feasible."""
+            tf = trigger_feas(st)
+            k_r = min(rescue_lanes, tf.shape[0])
+            idx = torch.sort(tf, descending=True, stable=True).indices[:k_r]
+            st_r = ALMState(*[a[idx] for a in st])
+            p_r, state_r = p[idx], state[idx]
+            # lanes beyond recover_tol restart from a fresh guess
+            diverged = trigger_feas(st_r) > recover_tol
+            x_in = with_reset(st_r.x, state_r, p_r[:, i_poseT], diverged)
+            st_in = st_r._replace(
+                x=x_in,
+                lam=torch.where(diverged[:, None],
+                                torch.zeros_like(st_r.lam), st_r.lam),
+                rho=torch.where(diverged, torch.full_like(st_r.rho, 100.0),
+                                st_r.rho))
+            st_r2 = _solve(solver, C, st_in, x_in, p_r, phase, rescue_outer)
+            take = (trigger_feas(st_r) > rescue_tol) & \
+                (trigger_feas(st_r2) < trigger_feas(st_r))
+            out = []
+            for a, a_r, a_r2 in zip(st, st_r, st_r2):
+                a = a.clone()
+                a[idx] = torch.where(bmask(take, a_r), a_r2, a_r)
+                out.append(a)
+            return ALMState(*out)
+
+        def plant_step(st, p, k):
+            """Ideal plant update: the solved splines at the next sample
+            instant become the new vehicle state; obstacles advance with
+            constant acceleration."""
+            phase = k % spk
+            cfs = st.x[:, s0:s1].reshape(-1, n_coef, n_spl)
+            p, state_n = model.update(p, cfs, phase + 1, horizon)
+            for (ix, iv, ia) in obstacle_idx:
+                pos, vel, acc = p[:, ix], p[:, iv], p[:, ia]
+                p[:, ix] = pos + vel * dt + 0.5 * acc * dt * dt
+                p[:, iv] = vel + acc * dt
+            return p, state_n
+
+        if budgets is not None:
+            (hard_outer, hard_inner), (easy_outer, easy_inner) = budgets
+            hard = (self.make_solver(
+                self._alm_options._replace(inner_iter=hard_inner)),
+                hard_outer)
+            easy = (self.make_solver(
+                self._alm_options._replace(inner_iter=easy_inner)),
+                easy_outer)
+
+        def rollout(st, p, state, consts: Optional[CompactConsts] = None,
+                    on_step=None):
+            C = consts if consts is not None else self.consts()
+            streak = torch.zeros(st.feas_raw.shape, dtype=torch.int32,
+                                 device=st.x.device)
+            states = []
+            for k in range(n_steps):
+                if budgets is None:
+                    solver_fn, n_outer = solver, outer_iter
+                else:
+                    solver_fn, n_outer = hard if (k % spk == 0 and k > 0) \
+                        else easy
+                with record_function("rollout.solve"):
+                    st, p, state, streak = solve_step(
+                        solver_fn, n_outer, C, (st, p, state, streak), k)
+                if rescue_lanes:
+                    with record_function("rollout.rescue"):
+                        st = rescue(C, st, p, state, k % spk)
+                with record_function("rollout.plant"):
+                    p, state = plant_step(st, p, k)
+                states.append(state)
+                if on_step is not None:
+                    on_step(k)
+            return (st, p, state), torch.stack(states, dim=1)
+
+        return rollout

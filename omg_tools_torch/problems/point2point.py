@@ -1,0 +1,135 @@
+"""Fixed-horizon point-to-point motion problem (counterpart of
+``omg_tools_tpu.problems.point2point``): horizon_time parameter, soft-L1
+terminal constraint via slack splines g_k with objective
+integral(g, t0, 1), hard terminal derivative constraints at tau = 1, and
+the warm-start shift over knot passage.
+
+Not ported yet: the free-time and free-end-point problems, and the host
+deployment methods (store, simulate, objective bookkeeping).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .problem import Problem
+from ..modeling.opti import BIG
+from ..ops.spline import evalspline, definite_integral
+
+__all__ = ["Point2point", "Point2pointProblem", "FixedTPoint2point"]
+
+
+class Point2point:
+    """Factory selecting the fixed-T problem (free-T is not ported yet)."""
+
+    def __new__(cls, fleet, environment, options=None, freeT=False):
+        if freeT:
+            raise NotImplementedError(
+                "FreeTPoint2point is not ported to omg_tools_torch yet")
+        return FixedTPoint2point(fleet, environment, options)
+
+
+class Point2pointProblem(Problem):
+
+    def __init__(self, fleet, environment, options):
+        Problem.__init__(self, fleet, environment, options, label="p2p")
+        self.init_time = None
+        self.start_time = 0.0
+
+    def set_default_options(self):
+        Problem.set_default_options(self)
+        self.options["inter_vehicle_avoidance"] = False
+
+    def construct(self):
+        self.T = self.define_parameter("T", value=self.horizon_value())[0]
+        self.t = self.define_parameter("t")[0]
+        self.t0 = self.t / self.T
+        for child in self.children:
+            child.problem_t = self.t
+            child.problem_T = self.T
+        Problem.construct(self)
+        for vehicle in self.vehicles:
+            vehicle.init()
+            splines = vehicle.define_splines(n_seg=1)
+            vehicle.define_trajectory_constraints(splines[0], self.T)
+            self.environment.define_collision_constraints(vehicle, splines,
+                                                          self.T)
+
+    def define_init_constraints(self):
+        for vehicle in self.vehicles:
+            init_con = vehicle.get_initial_constraints(vehicle.splines[0],
+                                                       self.T)
+            for spline, condition in init_con:
+                self.define_constraint(
+                    evalspline(spline, self.t0) - condition, 0.0, 0.0)
+
+    def horizon_value(self):
+        return 10.0
+
+
+class FixedTPoint2point(Point2pointProblem):
+
+    def __init__(self, fleet, environment, options):
+        Point2pointProblem.__init__(self, fleet, environment, options)
+        if self.vehicles[0].knot_intervals is None:
+            raise ValueError("fixed-T problems need constant knot intervals")
+        self.knot_time = (int(self.options["horizon_time"] * 1000.0)
+                          / self.vehicles[0].knot_intervals) / 1000.0
+
+    def set_default_options(self):
+        Point2pointProblem.set_default_options(self)
+        self.options["horizon_time"] = 10.0
+        self.options["hard_term_con"] = False
+        self.options["no_term_con_der"] = False
+
+    def horizon_value(self):
+        return self.options["horizon_time"]
+
+    def construct(self):
+        Point2pointProblem.construct(self)
+        self.define_init_constraints()
+        self.define_terminal_constraints()
+
+    def define_terminal_constraints(self):
+        """Soft-L1 terminal targets: for each target spline s with goal y*,
+        a slack spline g bounds |s - y*| coefficient-wise and its integral
+        over the remaining horizon is the cost.  Terminal derivative targets
+        are hard equalities at the horizon end."""
+        slack_cost = 0.0
+        self.term_con_len = []
+        self._term_g_bases = []
+        for vehicle in self.vehicles:
+            targets, der_targets = vehicle.get_terminal_constraints(
+                vehicle.splines[0])
+            if self.options["no_term_con_der"]:
+                der_targets = []
+            self.term_con_len.append(len(targets))
+            self._term_g_bases.append([s.basis for s, _ in targets])
+            for k, (s, goal) in enumerate(targets):
+                g = self.define_spline_variable(f"g{k}", 1, basis=s.basis)[0]
+                slack_cost = slack_cost + definite_integral(g, self.t0, 1.0)
+                self.define_constraint(s - goal - g, -BIG, 0.0)
+                self.define_constraint(goal - s - g, -BIG, 0.0)
+                if self.options["hard_term_con"]:
+                    self.define_constraint(s(np.array(1.0)) - goal, 0.0, 0.0)
+            for s, goal in der_targets:
+                self.define_constraint(
+                    evalspline(s, np.asarray(1.0)) - goal, 0.0, 0.0)
+        self.define_objective(slack_cost)
+
+    def set_parameters(self, current_time):
+        parameters = {self: {}}
+        if self.init_time is None:
+            parameters[self]["t"] = np.round(current_time, 6) % self.knot_time
+        else:
+            parameters[self]["t"] = self.init_time
+        parameters[self]["T"] = self.options["horizon_time"]
+        return parameters
+
+    def time_parameter(self, current_time):
+        if self.init_time is None:
+            return float(np.round(current_time, 6) % self.knot_time)
+        return float(self.init_time)
+
+    def init_primal_transform(self, basis):
+        return basis.shiftoverknot_T()

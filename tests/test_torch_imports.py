@@ -1,0 +1,99 @@
+"""The torch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on CUDA unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import omg_tools_torch as T
+from omg_tools_torch.interop import batch_from_numpy, state_from_numpy
+from omg_tools_torch.problems.batch import resolve_device
+
+pytestmark = pytest.mark.fast
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "omg_tools_torch"
+BANNED = ("jax", "jaxlib", "omg_tools_tpu")
+
+# runs in a fresh interpreter: any import of a banned package raises
+_CHILD = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+vehicle = T.Holonomic()
+vehicle.set_initial_conditions([-1.5, -1.5])
+vehicle.set_terminal_conditions([2.0, 2.0])
+env = T.Environment(room={"shape": T.Square(5.0)})
+env.add_obstacle(T.Obstacle({"position": [-2.1, -0.5]},
+                            shape=T.Rectangle(width=3.0, height=0.2)))
+env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]}, shape=T.Circle(0.4)))
+problem = T.Point2point(vehicle, env, freeT=False)
+problem.set_options({"verbose": 0})
+problem.init()
+assert problem.transcription.n_x > 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_builds_bench_problem_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_no_jax_import_in_source(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """device=None means CUDA: without a card the runner raises before any
+    work instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.BatchedP2PRunner(problem=None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_interop_default_device_needs_cuda(monkeypatch):
+    """The interop constructors follow the same rule as the runner."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((2, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_from_numpy(x, x, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy({"x": x})
+    x0, _, _ = batch_from_numpy(x, x, x, device="cpu")
+    assert x0.device == torch.device("cpu")
+    st = state_from_numpy({"x": x, "n_iter": np.zeros(2)}, device="cpu")
+    assert st.x.device == torch.device("cpu")
+    assert st.n_iter.dtype == torch.int32
