@@ -6,24 +6,40 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi); CUDA must exist;
-2. build: compile the CUDA kernels from ``omg_tools_torch/csrc``;
-3. kernels: every kernel against its plain PyTorch version on random SPD
-   inputs at the shapes of the main path (and of its rescue batch), with
-   CUDA-event times of the kernel, the plain version and a one-call
-   library yardstick (``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``,
-   never used by the port) beside the least time the card could take;
-4. main path: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
+2. build: compile the CUDA kernels from ``omg_tools_torch/csrc``, one
+   ``nvcc`` per source, all started together;
+3. kernels K1/K2: each against its plain PyTorch version on random SPD
+   inputs at the shapes of the compact-arrow path (and of its rescue
+   batch), with CUDA-event times of the kernel, the plain version and a
+   one-call library yardstick (``torch.linalg.cholesky_ex`` +
+   ``torch.cholesky_solve``, never used by the port) beside the least time
+   the card could take;
+4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
-   horizon at 10 Hz) as a B = 4096, 20-step batched rollout in float32 on
-   the card, at the bench settings (budgets 3x8/1x7, 2 outer rounds,
-   128 rescue lanes x 6 outer rounds, recover_tol 0.01); the kernel launch
-   counters are zeroed before and read after, and each kernel must have
-   run;
-5. profile: one MPC step traced with torch.profiler -- the device's kernel
-   time against the step's wall time, and the host time of each span;
-6. cross-check: the one-period-ahead planned state of the cold solve for
-   64 of those scenarios, card (float32) against the port on the CPU
-   (float64), within the 2 cm parity bound of ``bench.py``.
+   horizon at 10 Hz) and its float32 runner, which must pick the
+   ``compact-arrow-fused`` structure; B = 4096 scenarios;
+5. kernel K3: the fused inner loop on those scenarios' cold-solve inputs
+   (phase 0, zero multipliers, rho_init) at the main shape (B = 4096,
+   8 inner iterations) and the rescue shape (128 lanes, 5): with a
+   well-conditioned ridge, the kernel against its plain float32 version
+   within a small tolerance (step, g, gradient norm); with the bench
+   options, the merit it reaches and its x against a float64 run of the
+   plain version (``k3_kernel_phase``); CUDA-event times beside the least
+   time from the plan's non-zero arithmetic (``k3_work``);
+6. main path: the B = 4096, 20-step batched rollout in float32 on the
+   fused structure, at the bench settings (budgets 3x8/1x7, 2 outer
+   rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
+   counters are zeroed before and read after: K3 must have run, K1 and K2
+   not;
+7. profile: one fused MPC step traced with torch.profiler -- the device's
+   kernel time against the step's wall time, and the host time of each
+   span;
+8. compact-arrow path: the same runner with its fused plan taken off
+   (``runner.fused_plan = None``, the one selector of the path), a 3-step
+   rollout of the same batch; K1 and K2 must have run;
+9. cross-check: the one-period-ahead planned state of the fused cold
+   solve for 64 of those scenarios, card (float32) against the port on the
+   CPU (float64), within the 2 cm parity bound of ``bench.py``.
 
 The last two lines before the final one are the ``kernels`` JSON object and
 the card's name and power limit as nvidia-smi prints them; the final line
@@ -51,7 +67,16 @@ BUDGETS = ((3, 8), (1, 7))
 ROLLOUT = dict(outer_iter=OUTER_ITER, rescue_lanes=RESCUE,
                rescue_outer=RESCUE_OUTER, recover_tol=RECOVER_TOL,
                budgets=BUDGETS)
+CA_STEPS = 3              # compact-arrow path: depth cut from 20
 CROSS_LANES = 64
+K3_WELL_RIDGE = 1e-2      # gn_delta_rel of the well-conditioned K3 check
+K3_TOL_DX = 2e-3          # its kernel vs plain f32 tolerances: the step,
+K3_TOL_GV = 1e-3          # ... g (both of their largest value)
+K3_TOL_STAT = 1e-3        # ... and each lane's gradient norm
+K3_MERIT_GATE = 0.25      # bench options: p99 merit error / f64 decrease
+K3_GATE_FACTOR = 10.0     # kernel p99 error <= 10x the plain f32 version's
+K3_GATE_FLOOR = 1e-6      # ... or this fraction of max |x|
+K3_SHAPES = (("main", BATCH, BUDGETS[0][1]), ("rescue", RESCUE, INNER_ITER))
 TOL_REL = 5e-5            # kernel vs plain: max |diff| <= TOL_REL * max |plain|
 FEAS_P99_GATE = 1e-3      # bench.py:446
 PARITY_GATE_M = 0.02      # bench.py:443
@@ -70,6 +95,9 @@ KERNELS = (
      (640, 33, 27)),
 )
 SOURCE = "omg_tools_torch/csrc/chol_solve.cu"
+K3_NAME = "K3 fused ALM inner loop (fused_inner)"
+K3_SOURCE = "omg_tools_torch/csrc/fused_alm.cu"
+K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
 
 
 def check(cond, msg):
@@ -225,37 +253,236 @@ def planned_state(runner, x):
     return torch.einsum("c,bcs->bs", E1, cfs)
 
 
-def main_path_phase(T, device, B=BATCH, n_steps=N_STEPS, timed_runs=3):
-    import torch
+def launch_counts():
+    """The launch counters of every kernel, by wrapper name."""
+    from omg_tools_torch.ops import fused_alm as fa
     from omg_tools_torch.ops import psd_kernels as pk
+    return {"psd_solve": pk.psd_solve.launches,
+            "psd_solve_multi": pk.psd_solve_multi.launches,
+            "fused_inner": fa.fused_inner.launches}
+
+
+def zero_launch_counts():
+    from omg_tools_torch.ops import fused_alm as fa
+    from omg_tools_torch.ops import psd_kernels as pk
+    pk.psd_solve.launches = pk.psd_solve_multi.launches = 0
+    fa.fused_inner.launches = 0
+
+
+def setup_phase(T, device, B=BATCH):
+    """The bench scene's float32 runner on ``device`` and B scenarios."""
+    import torch
     t0 = time.time()
-    problem = build_problem(T)
     runner = T.BatchedP2PRunner(
-        problem, dtype=torch.float32, device=device,
+        build_problem(T), dtype=torch.float32, device=device,
         alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
-    check(runner.structure == "compact-arrow",
+    check(runner.structure == "compact-arrow-fused",
           f"structure {runner.structure}")
     starts, goals = scenarios(B)
     x0, p0, state = runner.make_batch(starts, goals)
     consts = runner.consts()
-    roll = runner.rollout_fn(n_steps, **ROLLOUT)
-    pk.psd_solve.launches = pk.psd_solve_multi.launches = 0
-    st = runner.init_solver_state(x0, p0, consts)
-    torch.cuda.synchronize()
-    init_launches = {"psd_solve": pk.psd_solve.launches,
-                     "psd_solve_multi": pk.psd_solve_multi.launches}
     setup_s = time.time() - t0
-    # the main path's counted run: the first rollout
-    pk.psd_solve.launches = pk.psd_solve_multi.launches = 0
-    t1 = time.time()
-    carry, states = roll(st, p0, state, consts)
-    torch.cuda.synchronize()
-    first_s = time.time() - t1
-    launches = {"psd_solve": pk.psd_solve.launches,
-                "psd_solve_multi": pk.psd_solve_multi.launches}
+    print(f"setup: {setup_s:.3f} s, structure {runner.structure}",
+          flush=True)
+    return runner, consts, starts, goals, x0, p0, state, setup_s
+
+
+def k3_work(plan, B, n_inner, n_cands, phase=0):
+    """(flops, bytes) that K3's function needs for B lanes, n_inner
+    iterations and one phase of this plan.  The products with the plan's
+    tables (C1, A, TA, Q, P: this run's data, which the kernel runs dense)
+    count at the tables' non-zeros; Q x and Q dx once per quad family; the
+    Gauss-Newton products at the non-zeros of J's rows and, being
+    symmetric, at their lower triangle.  The assembled tail blocks, panels
+    and head are factored and solved as dense triangles (their own
+    sparsity is not credited), every row counts as active, and the line
+    search's merit terms count per row and candidate.  Bytes: the lane
+    state read and written once and one phase of tables (with lb, ub) read
+    once."""
+    h = plan.head[1]
+    once = np.count_nonzero(plan.C1[phase])        # c = c0 + C1 pv
+    per_it = 0.0
+    for f in plan.fams:
+        m_f = f.row_stop - f.row_start
+        n_f = sum(z for _, z in f.runs)
+        pat = plan.uA[f.iA][phase] != 0            # J's non-zeros
+        if f.iTA >= 0:
+            TA = plan.uTA[f.iTA][phase]
+            once += np.count_nonzero(TA)           # A = A0 + TA pq
+            pat = pat | (TA != 0).any(-1)
+        if f.iQ >= 0:
+            Q = plan.uQ[f.iQ].reshape(m_f, n_f, n_f) != 0
+            pat = pat | Q.any(-1)
+            # Q x, Q dx; J = A + 2 Q x, x'Q dx and dx'Q dx per entry
+            per_it += 2 * Q.sum() + 3 * pat.sum()
+        per_it += 3 * pat.sum()                    # g, J'y, J dx
+        if f.iP >= 0:                              # H = P d, lower triangle
+            P = plan.uP[f.iP][phase].reshape(n_f, n_f, m_f) != 0
+            per_it += np.tril(P.transpose(2, 0, 1)).sum()
+        else:                                      # H = J' diag(d) J
+            k = pat.sum(1)
+            per_it += (k * (k + 1) // 2 + k).sum()
+    for (_, sz) in plan.blocks:
+        # Cholesky, L^-1 [C' | r_b], Schur Y'Y (lower) + Y'r_b,
+        # back-substitution
+        per_it += sz ** 3 / 6 + sz * sz / 2 * (h + 1) \
+            + sz * (h * (h + 1) / 2 + h) + sz * h + sz * sz / 2
+    per_it += h ** 3 / 6 + h * h                   # head factor and solves
+    flops = 2.0 * B * (float(once) + n_inner * float(per_it)) \
+        + 6.0 * B * n_inner * plan.m * (n_cands + 1)
+    lane = 2 * plan.n_x + 2 * plan.m + plan.n_v + 2
+    nbytes = 4 * (B * lane + plan.phase_len + 2 * plan.m)
+    return flops, nbytes
+
+
+def _merit(x, gv, a, lb, ub, gf):
+    """The inner loop's merit in float64 at (x, g(x) = gv): gf'x plus the
+    penalty of the multipliers and rho of ``a`` (the constant f0 left out)."""
+    import torch
+    rho = a["rho"].double()
+    rr = gv.double() + a["lam"].double() / rho[:, None]
+    viol = rr - torch.clamp(rr, lb.double(), ub.double())
+    return x.double() @ gf + 0.5 * rho * (viol * viol).sum(-1)
+
+
+def k3_kernel_phase(runner, consts, x0, p0):
+    """Phase 5: K3 against its plain version at the main and rescue shapes
+    on the main path's cold-solve inputs; returns the kernels-line record
+    (main shape).  Three checks per shape:
+
+    - well-conditioned (ridge K3_WELL_RIDGE of the largest diagonal, the
+      bench's other options): the kernel against the plain float32
+      version, its step x - x0 within K3_TOL_DX of the largest step, g
+      within K3_TOL_GV of the largest |g|, the gradient norm within
+      K3_TOL_STAT of each lane's;
+    - the bench options, whose ridge (1e-6) leaves directions that float32
+      cannot resolve, so that float32 runs leave the float64 trajectory:
+      the merit the kernel reaches, at p99 over lanes, within
+      K3_MERIT_GATE of the float64 run's decrease from the start;
+    - the same runs: p99 over lanes of max |x - x_f64|, the kernel's within
+      10x the plain float32 version's (floor 1e-6 max |x|), and the kernel
+      finite wherever the plain float32 version is."""
+    import torch
+    from omg_tools_torch.ops import fused_alm as fa
+    plan = runner.fused_plan
+    opt = runner.solver.options
+    well = opt._replace(gn_delta_rel=K3_WELL_RIDGE)
+    dev = x0.device
+    lb, ub = runner.solver.scale_bounds(runner.lb, runner.ub, torch.float32,
+                                        dev)
+    pv_all = p0[:, torch.as_tensor(plan.pcols, device=dev)].contiguous()
+    fs = fa.FusedPlan.slice_phase(consts.FS, 0)
+    fs64 = dict(fs, tables=fs["tables"].double())
+    gf = plan.tables(fs64["tables"])["gf"]
+    rec = None
+    for tag, B, n_inner in K3_SHAPES:
+        B = min(B, x0.shape[0])
+        a = {"x": x0[:B].contiguous(), "pv": pv_all[:B].contiguous(),
+             "lam": torch.zeros((B, plan.m), device=dev),
+             "rho": torch.full((B,), opt.rho_init, device=dev),
+             "lb": lb, "ub": ub}
+        a64 = {k: v.double() for k, v in a.items()}
+
+        def run(fn, o, n=n_inner, a=a, fs=fs):
+            return fn(plan, fs, a["x"], a["lam"], a["rho"], a["pv"], a["lb"],
+                      a["ub"], o, n)
+
+        def kern():
+            return run(fa.fused_inner, opt)
+
+        def plain():
+            return run(fa.fused_inner_plain, opt)
+
+        def pct(e, q):
+            return float(torch.quantile(e.double(), q))
+
+        # well-conditioned: the kernel against the plain float32 version
+        kw, pw = run(fa.fused_inner, well), run(fa.fused_inner_plain, well)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in kw + pw),
+              f"{K3_NAME} {tag}: non-finite output, well-conditioned")
+        e_dx = float((kw[0] - pw[0]).abs().max()
+                     / (pw[0] - a["x"]).abs().max())
+        e_gv = float((kw[1] - pw[1]).abs().max() / pw[1].abs().max())
+        e_stat = float(((kw[2] - pw[2]).abs() / pw[2].abs()).max())
+        well_line = {"step": e_dx, "g": e_gv, "stat": e_stat,
+                     "max_abs_err_x": float((kw[0] - pw[0]).abs().max())}
+        check(e_dx <= K3_TOL_DX and e_gv <= K3_TOL_GV
+              and e_stat <= K3_TOL_STAT,
+              f"{K3_NAME} {tag}: kernel vs plain float32, well-conditioned, "
+              f"{well_line} exceeds ({K3_TOL_DX}, {K3_TOL_GV}, "
+              f"{K3_TOL_STAT})")
+
+        # the bench options: merit and x against a float64 run
+        got, p32 = kern(), plain()
+        p64 = run(fa.fused_inner_plain, opt, a=a64, fs=fs64)
+        g_in = run(fa.fused_inner_plain, opt._replace(ls_candidates=(0.0,)),
+                   n=1, a=a64, fs=fs64)[1]
+        torch.cuda.synchronize()
+        ref = p64[0]
+        finite = torch.isfinite(p32[0]).all(-1)
+        check(bool(torch.isfinite(got[0][finite]).all()),
+              f"{K3_NAME} {tag}: non-finite where the plain version is finite")
+        m64 = _merit(ref, p64[1], a64, lb, ub, gf)
+        decrease = _merit(a64["x"], g_in, a64, lb, ub, gf) - m64
+
+        def merit_err(out):
+            m = _merit(out[0], out[1], a64, lb, ub, gf)
+            return ((m - m64).abs() / decrease.abs())[finite]
+        mer_k, mer_p = merit_err(got), merit_err(p32)
+        check(pct(mer_k, 0.99) <= K3_MERIT_GATE,
+              f"{K3_NAME} {tag}: p99 merit error {pct(mer_k, 0.99)} of the "
+              f"float64 decrease > {K3_MERIT_GATE}")
+        err_k = (got[0].double() - ref).abs().amax(-1)[finite]
+        err_p = (p32[0].double() - ref).abs().amax(-1)[finite]
+        floor = K3_GATE_FLOOR * float(ref.abs().max())
+        gate = K3_GATE_FACTOR * max(pct(err_p, 0.99), floor)
+        check(pct(err_k, 0.99) <= gate,
+              f"{K3_NAME} {tag}: p99 error vs float64 {pct(err_k, 0.99)} > "
+              f"{gate}")
+
+        ms = time_ms(kern, reps=10, warmup=2)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        flops, nbytes = k3_work(plan, B, n_inner, len(opt.ls_candidates))
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        line = {"name": K3_NAME, "shape": tag, "B": B, "n_inner": n_inner,
+                "finite_lanes": int(finite.sum()),
+                "well_conditioned_vs_plain_f32": well_line,
+                "merit_err_of_f64_decrease": {
+                    "kernel_p50": pct(mer_k, 0.5),
+                    "kernel_p99": pct(mer_k, 0.99),
+                    "kernel_max": float(mer_k.max()),
+                    "plain_f32_p99": pct(mer_p, 0.99),
+                    "plain_f32_max": float(mer_p.max())},
+                "kernel_vs_f64": {"p50": pct(err_k, 0.5),
+                                  "p99": pct(err_k, 0.99),
+                                  "max": float(err_k.max())},
+                "plain_f32_vs_f64": {"p50": pct(err_p, 0.5),
+                                     "p99": pct(err_p, 0.99),
+                                     "max": float(err_p.max())},
+                "gate": gate,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops}
+        print("kernel_check " + json.dumps(line), flush=True)
+        if tag == "main":
+            rec = {"name": K3_NAME, "route": "cuda", "source": K3_SOURCE,
+                   "replaces": K3_REPLACES, "launches": None,
+                   "max_abs_err": well_line["max_abs_err_x"], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
+                   "bound_by": line["bound_by"], "library_ms": None,
+                   "shape": [B, n_inner]}
+    return ("fused_inner", rec)
+
+
+def timed_rollouts(roll, st, p0, state, consts, timed_runs):
+    """Median wall time of ``timed_runs`` rollouts and the step times
+    between CUDA events recorded at every step boundary."""
+    import torch
     times, step_ms = [], []
     for _ in range(timed_runs):
-        # a CUDA event at each step boundary, read once after the rollout
         events = [torch.cuda.Event(enable_timing=True)]
         t1 = time.time()
         events[0].record()
@@ -265,7 +492,30 @@ def main_path_phase(T, device, B=BATCH, n_steps=N_STEPS, timed_runs=3):
         torch.cuda.synchronize()
         times.append(time.time() - t1)
         step_ms.extend(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-    run_s = float(np.median(times))
+    return carry, states, float(np.median(times)), times, step_ms
+
+
+def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
+                    n_steps=N_STEPS, timed_runs=3):
+    import torch
+    B = x0.shape[0]
+    roll = runner.rollout_fn(n_steps, **ROLLOUT)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    st = runner.init_solver_state(x0, p0, consts)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    init_launches = launch_counts()
+    # the main path's counted run: the first rollout
+    zero_launch_counts()
+    t1 = time.time()
+    carry, states = roll(st, p0, state, consts)
+    torch.cuda.synchronize()
+    first_s = time.time() - t1
+    launches = launch_counts()
+    carry, states, run_s, times, step_ms = timed_rollouts(
+        roll, st, p0, state, consts, timed_runs)
     states_np = states.double().cpu().numpy()
     feas = carry[0].feas.double().cpu().numpy()
     feas_raw = carry[0].feas_raw.double().cpu().numpy()
@@ -273,7 +523,8 @@ def main_path_phase(T, device, B=BATCH, n_steps=N_STEPS, timed_runs=3):
     d1 = np.linalg.norm(states_np[:, -1] - goals, axis=1)
     out = {
         "structure": runner.structure, "batch": B, "n_steps": n_steps,
-        "setup_s": setup_s, "first_rollout_s": first_s,
+        "setup_s": setup_s, "cold_solve_s": init_s,
+        "first_rollout_s": first_s,
         "rollout_s": run_s, "rollout_s_all": times,
         "solves_per_s": B * n_steps / run_s,
         # time of one MPC step of the whole batch between the CUDA events
@@ -294,6 +545,7 @@ def main_path_phase(T, device, B=BATCH, n_steps=N_STEPS, timed_runs=3):
         "mean_progress_frac": float(np.mean((d0 - d1) / d0)),
         "n_iter_p50": float(np.median(carry[0].n_iter.cpu().numpy())),
         "init_launches": init_launches, "rollout_launches": launches,
+        # from the cold solve on: the main path's own peak
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     print("main_path " + json.dumps(out), flush=True)
@@ -301,13 +553,53 @@ def main_path_phase(T, device, B=BATCH, n_steps=N_STEPS, timed_runs=3):
     check(out["feas_p99"] < FEAS_P99_GATE,
           f"feas_p99 {out['feas_p99']} >= {FEAS_P99_GATE}")
     check(out["mean_progress_frac"] > 0.0, "no progress toward the goals")
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the main path")
-    return runner, st, p0, state, starts, goals, launches
+    check(out["diverged_lanes"] == 0,
+          f"{out['diverged_lanes']} diverged lanes")
+    check(launches["fused_inner"] > 0, "K3 never launched on the main path")
+    for name in ("psd_solve", "psd_solve_multi"):
+        check(launches[name] == 0,
+              f"{name} launched on the fused path ({launches[name]} times)")
+    return st, launches
+
+
+def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
+    """Phase 8: the compact-arrow path (K1 + K2) on the same runner and
+    batch, with the fused plan taken off, warm-started from the fused cold
+    solve; its launch counts are the K1/K2 records'."""
+    import torch
+    runner.fused_plan = None
+    check(runner.structure == "compact-arrow",
+          f"structure {runner.structure} without a fused plan")
+    consts = runner.consts()
+    roll = runner.rollout_fn(n_steps, **ROLLOUT)
+    zero_launch_counts()
+    t0 = time.time()
+    carry, states = roll(st, p0, state, consts)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = launch_counts()
+    carry, states, run_s, times, step_ms = timed_rollouts(
+        roll, st, p0, state, consts, timed_runs=1)
+    feas = carry[0].feas.double().cpu().numpy()
+    out = {"structure": runner.structure, "batch": int(st.x.shape[0]),
+           "n_steps": n_steps, "first_rollout_s": first_s,
+           "rollout_s": run_s, "step_ms": step_ms,
+           "p50_step_latency_ms": float(np.median(step_ms)),
+           "max_step_latency_ms": float(np.max(step_ms)),
+           "feas_p99": float(np.percentile(feas, 99)),
+           "launches": launches}
+    print("compact_arrow " + json.dumps(out), flush=True)
+    check(bool(torch.isfinite(states).all()), "non-finite states")
+    check(launches["fused_inner"] == 0,
+          "K3 launched on the compact-arrow path")
+    for name in ("psd_solve", "psd_solve_multi"):
+        check(launches[name] > 0,
+              f"{name} never launched on the compact-arrow path")
+    return launches
 
 
 def profile_phase(runner, st, p0, state):
-    """One traced MPC step (k = 0, with its rescue) under torch.profiler:
+    """One traced fused MPC step (k = 0, with its rescue) under torch.profiler:
     the device's kernel time against the same step's untraced wall time,
     the kernels launched, and the host time of each span of the port."""
     import torch
@@ -392,11 +684,16 @@ def main():
 
     device = torch.device("cuda")
     records = kernel_phase(device)
-    runner, st, p0, state, starts, goals, launches = main_path_phase(
+    runner, consts, starts, goals, x0, p0, state, setup_s = setup_phase(
         T, device)
+    records.append(k3_kernel_phase(runner, consts, x0, p0))
+    st, launches = main_path_phase(runner, consts, starts, goals, x0, p0,
+                                   state, setup_s)
+    profile_phase(runner, st, p0, state)
+    launches.update({k: v for k, v in compact_arrow_phase(
+        runner, st, p0, state).items() if k != "fused_inner"})
     for entry, rec in records:
         rec["launches"] = launches[entry]
-    profile_phase(runner, st, p0, state)
     cross_check_phase(T, runner, st, starts, goals)
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
     print(card, flush=True)

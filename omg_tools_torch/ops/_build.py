@@ -32,6 +32,10 @@ SIGNATURES = {
         "omg_psd_solve_f32": (_P, _P, _P, _I, _I, _P),
         "omg_psd_solve_multi_f32": (_P, _P, _P, _I, _I, _I, _P),
     },
+    "fused_alm": {
+        "omg_fused_inner_f32": (_P,) * 10 + (_I, _P, _P, _P, _I, _I, _P),
+        "omg_fused_layout": (_P, _I),
+    },
 }
 
 _loaded = {}

@@ -8,7 +8,9 @@
 - inner minimization by Gauss-Newton steps on the block-arrow system
   (head Schur complement over tail blocks, ``ops.compact``), solved with
   the K2 (tail blocks) and K1 (head) kernels, then a parallel Armijo
-  search along the exact quadratic merit expansion;
+  search along the exact quadratic merit expansion -- or, given a
+  ``FusedPlan``, every inner step of an outer round in one launch of K3
+  (``ops.fused_alm``);
 - outer updates: lam <- y_hat; rho grows when feasibility stalls.
 
 Every runtime tensor carries an explicit leading batch axis B (the JAX
@@ -18,7 +20,7 @@ runs while any lane is active and freezes the lanes that are done.
 
 Not ported yet: the dense-quadratic and generic (AD per iteration) modes,
 the compact mode without an arrow partition, the saddle-free ``eigh``
-Hessian, the fused inner-loop kernel and ``diagnose``.
+Hessian and ``diagnose``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.profiler import record_function
 
 from .solver import BIG
 from .compact import CompactWork
+from .fused_alm import fused_inner
 from .psd_kernels import psd_solve, psd_solve_multi
 
 __all__ = ["ALMState", "ALMOptions", "make_alm_solver",
@@ -110,8 +113,9 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                     lb0: np.ndarray, ub0: np.ndarray,
                     options: ALMOptions = ALMOptions(),
                     row_scale: Optional[np.ndarray] = None,
-                    obj_scale: float = 1.0, compact=None):
-    """Build ``solve(x0, p, lb, ub, state0=None, outer_iter=None, ct=...)``
+                    obj_scale: float = 1.0, compact=None, fused_plan=None):
+    """Build ``solve(x0, p, lb, ub, state0=None, outer_iter=None, ct=...,
+    fshared=...)``
     minimizing f s.t. lb <= g <= ub over a batch: x0 (B, n), p (B, n_p),
     lb/ub (m,) in raw units and transcription row order.
 
@@ -119,7 +123,12 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
     partition.  Callers pass the phase-resolved tensors as ``ct`` (from
     :func:`ops.compact.resolve_phase`).  Row scaling is baked into the
     compact tensors; lb/ub are scaled and permuted into the compact row
-    order here."""
+    order here.
+
+    ``fused_plan``: an :class:`ops.fused_alm.FusedPlan` of ``compact``.
+    Callers then pass one phase's shared operands as
+    ``fshared=FusedPlan.slice_phase(shared, phase)`` instead of ``ct``, and
+    each outer round is one :func:`ops.fused_alm.fused_inner` call."""
     if compact is None or compact.arrow is None:
         raise NotImplementedError(
             "omg_tools_torch ports the compact-arrow ALM mode only so far")
@@ -140,11 +149,13 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                     a, dtype=dtype, device=device)
             _cache[key] = (t(d_np), t(inv_d_np),
                            torch.as_tensor(row_perm, device=device),
-                           t(np.asarray(opt.ls_candidates)))
+                           t(np.asarray(opt.ls_candidates)),
+                           None if fused_plan is None else torch.as_tensor(
+                               fused_plan.pcols, device=device))
         return _cache[key]
 
     def _scale_rt(lb, ub, dtype, device):
-        d, _, perm, _ = consts(dtype, device)
+        d, _, perm, _, _ = consts(dtype, device)
         lb = torch.as_tensor(lb, dtype=dtype, device=device)
         ub = torch.as_tensor(ub, dtype=dtype, device=device)
         if d is not None:
@@ -235,10 +246,13 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             return x + alpha[:, None] * dx, grad_.abs().amax(-1)
 
     def solve(x0, p, lb, ub, state0: Optional[ALMState] = None,
-              outer_iter: Optional[int] = None, ct=None):
-        if ct is None:
+              outer_iter: Optional[int] = None, ct=None, fshared=None):
+        if fshared is not None and fused_plan is None:
+            raise ValueError("fshared needs a solver built with fused_plan")
+        if fshared is None and ct is None:
             raise ValueError("the compact solver needs the resolved "
-                             "tensors ct (ops.compact.resolve_phase)")
+                             "tensors ct (ops.compact.resolve_phase) or the "
+                             "fused kernel's fshared")
         dtype, device = x0.dtype, x0.device
         B = x0.shape[0]
         lb, ub = _scale_rt(lb, ub, dtype, device)
@@ -255,18 +269,30 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             state = state0._replace(x=x0, feas=inf, stat=inf,
                                     n_iter=zeros_i, feas_raw=inf)
         n_outer = opt.outer_iter if outer_iter is None else outer_iter
-        work = CompactWork(compact, ct)
+        if fshared is not None:
+            work = None
+            pv = p[:, consts(dtype, device)[4]]
+        else:
+            work = CompactWork(compact, ct)
         # dtype-aware feasibility floor: in f32 the configured tolerance
         # sits below the roundoff of the scaled constraint evaluation
         feas_tol = max(opt.feas_tol, 1000.0 * torch.finfo(dtype).eps)
 
         def outer_body(st):
-            x_n = st.x
-            stat = inf
-            for _ in range(opt.inner_iter):
-                x_n, stat = inner_step(work, x_n, st.lam, st.rho, lb, ub)
+            if work is None:
+                with record_function("alm.fused_inner"):
+                    x_n, gv, stat = fused_inner(
+                        fused_plan, fshared, st.x, st.lam, st.rho, pv, lb,
+                        ub, opt, opt.inner_iter)
+            else:
+                x_n = st.x
+                stat = inf
+                for _ in range(opt.inner_iter):
+                    x_n, stat = inner_step(work, x_n, st.lam, st.rho, lb,
+                                           ub)
             with record_function("alm.outer_update"):
-                gv = work.g(x_n)
+                if work is not None:
+                    gv = work.g(x_n)
                 y_hat = multiplier_estimate(gv, st.lam, st.rho, lb, ub)
                 viol_rows = torch.clamp(lb - gv, min=0.0) \
                     + torch.clamp(gv - ub, min=0.0)
@@ -299,4 +325,5 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
         return state
 
     solve.options = opt
+    solve.scale_bounds = _scale_rt
     return solve

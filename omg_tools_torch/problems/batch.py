@@ -11,12 +11,15 @@ on the CPU; its tensors then move to the device.
 
 Scope: FixedT Point2point problems with a Holonomic vehicle, obstacles with
 constant-acceleration motion, ideal plant update, the ``compact-arrow``
-solver structure.  The fused inner-loop kernel, the structure caches and
-the dense/generic structures are not ported yet.
+solver structure and, in float32, ``compact-arrow-fused`` (every inner
+iteration of an outer round in one launch of the fused kernel K3,
+``ops/fused_alm.py``).  The structure caches and the dense/generic
+structures are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +30,7 @@ from torch.profiler import record_function
 from ..ops.alm import ALMState, ALMOptions, make_alm_solver, \
     detect_quadratic_structure
 from ..ops.compact import build_compact, detect_arrow, resolve_phase
+from ..ops.fused_alm import FusedPlan
 from .rollout_models import make_rollout_model
 
 __all__ = ["BatchedP2PRunner", "CompactConsts", "resolve_device"]
@@ -54,6 +58,17 @@ class CompactConsts(NamedTuple):
     lb: torch.Tensor
     ub: torch.Tensor
     M: torch.Tensor             # shiftoverknot warm-start transform
+    FS: Optional[dict] = None   # FusedPlan.shared() (fused structure)
+
+
+def _fused_operands(fused_plan, C, phase):
+    """One phase's operands of the fused kernel, or None on the
+    compact-arrow path; raises when the consts do not match the plan."""
+    if (fused_plan is None) != (C.FS is None):
+        raise ValueError(
+            "the consts carry FS exactly when the runner has a fused plan: "
+            "take them from runner.consts() after setting runner.fused_plan")
+    return None if fused_plan is None else FusedPlan.slice_phase(C.FS, phase)
 
 
 class BatchedP2PRunner:
@@ -82,7 +97,7 @@ class BatchedP2PRunner:
                                        torch.as_tensor(p_base),
                                        f=tr.objective, frozen_idx=frozen)
         self._Q_raw = None if Q is None else np.asarray(Q)
-        self.structure = "quadratic" if Q is not None else "generic"
+        structure = "quadratic" if Q is not None else "generic"
         vehicle = problem.vehicles[0]
         self.vehicle = vehicle
         self.n_x = tr.n_x
@@ -168,18 +183,35 @@ class BatchedP2PRunner:
                     best = (cost, arrow)
             if best is not None:
                 self.compact.arrow = best[1]
-            self.structure = "compact"
+            structure = "compact"
             if self.compact.arrow is not None:
-                self.structure = "compact-arrow"
-        if self.structure != "compact-arrow":
+                structure = "compact-arrow"
+        if structure != "compact-arrow":
             raise NotImplementedError(
-                f"structure {self.structure!r}: omg_tools_torch runs the "
+                f"structure {structure!r}: omg_tools_torch runs the "
                 "compact-arrow structure only so far")
+
+        # the fused inner loop (K3): one kernel launch per outer round; the
+        # kernel is float32, so float64 runners keep compact-arrow.  The
+        # plan is the one selector of the path (see ``structure``):
+        # ``runner.fused_plan = None`` turns a built runner to compact-arrow
+        self.fused_plan = None
+        if (dtype == torch.float32
+                and os.environ.get("OMG_DISABLE_FUSED", "0") != "1"):
+            self.fused_plan = FusedPlan(self.compact)
 
         self._alm_options = alm_options if alm_options is not None \
             else ALMOptions()
         self.solver = self.make_solver(self._alm_options)
         self._consts = None
+
+    @property
+    def structure(self):
+        """The solver structure the runner's solves take:
+        ``compact-arrow-fused`` while it has a fused plan, else
+        ``compact-arrow``."""
+        return "compact-arrow" if self.fused_plan is None \
+            else "compact-arrow-fused"
 
     def make_solver(self, alm_options):
         """An ALM solver over this runner's compacted tensors with a custom
@@ -189,14 +221,19 @@ class BatchedP2PRunner:
         return make_alm_solver(
             tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub, alm_options,
             row_scale=problem._row_scale, obj_scale=problem._obj_scale,
-            compact=self.compact)
+            compact=self.compact, fused_plan=self.fused_plan)
 
     def consts(self):
-        """The rollout's device tensors."""
+        """The rollout's device tensors; ``FS`` is set exactly when the
+        runner has a fused plan."""
         if self._consts is None:
             self._consts = CompactConsts(
                 self.compact.device_tensors(self.dtype, self.device),
                 self.lb, self.ub, self.shift_M)
+        if (self._consts.FS is None) != (self.fused_plan is None):
+            self._consts = self._consts._replace(
+                FS=None if self.fused_plan is None else
+                self.fused_plan.shared(self.dtype, self.device))
         return self._consts
 
     def _varying_param_indices(self):
@@ -237,7 +274,7 @@ class BatchedP2PRunner:
         jac_xp_v = jacfwd(jx_of_dp)                   # (m, n, n_v)
         grad_f = grad(f_fn)
         c0s, C1s, A0s, TAs, f0s, gfs = [], [], [], [], [], []
-        ok = self.structure == "quadratic"
+        ok = self._Q_raw is not None              # quadratic constraints
         for ph in range(spk if ok else 0):
             p_ref = p_base.copy()
             p_ref[self.i_t] = ph * self.update_time
@@ -347,6 +384,9 @@ class BatchedP2PRunner:
     def init_solver_state(self, x0, p0, consts=None):
         """Batched cold solve producing the initial warm state."""
         C = consts if consts is not None else self.consts()
+        fs = _fused_operands(self.fused_plan, C, 0)
+        if fs is not None:
+            return self.solver(x0, p0, C.lb, C.ub, fshared=fs)
         ct = resolve_phase(self.compact, C.CT, 0, p0)
         return self.solver(x0, p0, C.lb, C.ub, ct=ct)
 
@@ -374,11 +414,16 @@ class BatchedP2PRunner:
         k > 0) gets the hard budget.  Overrides ``outer_iter`` when given.
 
         The returned ``rollout(st, p, state, consts=None, on_step=None)``
-        calls ``on_step(k)``, when given, after step k has been issued."""
+        calls ``on_step(k)``, when given, after step k has been issued.
+
+        The solves go through the fused kernel when ``self.fused_plan`` is
+        set as this function is called; the consts must then carry ``FS``,
+        and must not otherwise."""
         spk = self.steps_per_knot
         dt = self.update_time
         solver = self.solver
         compact = self.compact
+        fused_plan = self.fused_plan
         s0, s1 = int(self.i_splines[0]), int(self.i_splines[-1]) + 1
         dev = self.device
         i_poseT = torch.as_tensor(self.i_poseT, device=dev)
@@ -405,6 +450,10 @@ class BatchedP2PRunner:
             return torch.where(mask[:, None], x_reset, x)
 
         def _solve(solver_fn, C, st_in, x_warm, p, phase, n_outer):
+            fs = _fused_operands(fused_plan, C, phase)
+            if fs is not None:
+                return solver_fn(x_warm, p, C.lb, C.ub, state0=st_in,
+                                 outer_iter=n_outer, fshared=fs)
             ct = resolve_phase(compact, C.CT, phase, p)
             return solver_fn(x_warm, p, C.lb, C.ub, state0=st_in,
                              outer_iter=n_outer, ct=ct)
@@ -486,6 +535,7 @@ class BatchedP2PRunner:
         def rollout(st, p, state, consts: Optional[CompactConsts] = None,
                     on_step=None):
             C = consts if consts is not None else self.consts()
+            _fused_operands(fused_plan, C, 0)   # consts match the plan
             streak = torch.zeros(st.feas_raw.shape, dtype=torch.int32,
                                  device=st.x.device)
             states = []
