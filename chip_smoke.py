@@ -25,7 +25,11 @@ Phases, in order; any failure raises and exits non-zero:
    within a small tolerance (step, g, gradient norm); with the bench
    options, the merit it reaches and its x against a float64 run of the
    plain version (``k3_kernel_phase``); CUDA-event times beside the least
-   time from the plan's non-zero arithmetic (``k3_work``);
+   time from the plan's non-zero arithmetic (``k3_work``); the lanes a
+   block serves and its shared memory (held to the CUDA side's count), and
+   the share of each phase of an iteration in the blocks' clock cycles
+   (a launch with the clock profile on, whose outputs must equal the
+   unprofiled launch's bit for bit);
 6. main path: the B = 4096, 20-step batched rollout in float32 on the
    fused structure, at the bench settings (budgets 3x8/1x7, 2 outer
    rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
@@ -290,8 +294,8 @@ def setup_phase(T, device, B=BATCH):
 def k3_work(plan, B, n_inner, n_cands, phase=0):
     """(flops, bytes) that K3's function needs for B lanes, n_inner
     iterations and one phase of this plan.  The products with the plan's
-    tables (C1, A, TA, Q, P: this run's data, which the kernel runs dense)
-    count at the tables' non-zeros; Q x and Q dx once per quad family; the
+    tables (C1, A, TA, Q, P: this run's data) count at the tables'
+    non-zeros; Q x and Q dx once per quad family; the
     Gauss-Newton products at the non-zeros of J's rows and, being
     symmetric, at their lower triangle.  The assembled tail blocks, panels
     and head are factored and solved as dense triangles (their own
@@ -374,9 +378,21 @@ def k3_kernel_phase(runner, consts, x0, p0):
     fs = fa.FusedPlan.slice_phase(consts.FS, 0)
     fs64 = dict(fs, tables=fs["tables"].double())
     gf = plan.tables(fs64["tables"])["gf"]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the compressed tables the kernel reads (one phase) and its lane layout
+    layout = {"desc_words": int(fs["desc_host"].size),
+              "values_per_phase": plan.values_len, "j_positions": plan.n_j,
+              "arrow_floats": plan.arrow_len,
+              "lane_bytes": 4 * plan.lane_floats(), "sms": n_sm}
     rec = None
     for tag, B, n_inner in K3_SHAPES:
         B = min(B, x0.shape[0])
+        lanes = fa.lanes_per_block(B, n_sm, plan.smem_bytes)
+        smem = plan.smem_bytes(lanes)
+        check(fa.kernel_smem_bytes(fs["desc_host"], lanes) == smem,
+              f"{K3_NAME} {tag}: the CUDA side lays out "
+              f"{fa.kernel_smem_bytes(fs['desc_host'], lanes)} shared bytes "
+              f"for {lanes} lanes, FusedPlan {smem}")
         a = {"x": x0[:B].contiguous(), "pv": pv_all[:B].contiguous(),
              "lam": torch.zeros((B, plan.m), device=dev),
              "rho": torch.full((B,), opt.rho_init, device=dev),
@@ -442,11 +458,28 @@ def k3_kernel_phase(runner, consts, x0, p0):
               f"{gate}")
 
         ms = time_ms(kern, reps=10, warmup=2)
+        # where a block's time goes: the clock cycles of each phase of an
+        # iteration, summed over blocks (one more launch, whose outputs
+        # must equal the unprofiled launch's bit for bit)
+        clocks = torch.zeros(len(fa.PHASES), dtype=torch.int64, device=dev)
+        prof = fa.fused_inner(plan, fs, a["x"], a["lam"], a["rho"], a["pv"],
+                              a["lb"], a["ub"], opt, n_inner, clocks=clocks)
+        check(all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                  for u, v in zip(prof, got)),
+              f"{K3_NAME} {tag}: the clock profile changed the outputs")
+        cyc = clocks.double().cpu().numpy()
+        phases = {"cycles_per_block_iteration":
+                  float(cyc.sum()) / (-(-B // lanes) * n_inner),
+                  "share": {name: float(c / cyc.sum())
+                            for name, c in zip(fa.PHASES, cyc)}}
         plain_ms = time_ms(plain, reps=3, warmup=1)
         flops, nbytes = k3_work(plan, B, n_inner, len(opt.ls_candidates))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         line = {"name": K3_NAME, "shape": tag, "B": B, "n_inner": n_inner,
+                "lanes_per_block": lanes, "blocks": -(-B // lanes),
+                "phases": phases,
+                "smem_bytes_per_block": smem, "layout": layout,
                 "finite_lanes": int(finite.sum()),
                 "well_conditioned_vs_plain_f32": well_line,
                 "merit_err_of_f64_decrease": {
@@ -473,7 +506,8 @@ def k3_kernel_phase(runner, consts, x0, p0):
                    "max_abs_err": well_line["max_abs_err_x"], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
                    "bound_by": line["bound_by"], "library_ms": None,
-                   "shape": [B, n_inner]}
+                   "shape": [B, n_inner], "lanes_per_block": lanes,
+                   "smem_bytes_per_block": smem}
     return ("fused_inner", rec)
 
 
@@ -680,7 +714,8 @@ def main():
         if log.exists():
             print(f"ptxas[{name}]: " + " | ".join(
                 l.strip() for l in log.read_text().splitlines()
-                if "registers" in l or "smem" in l), flush=True)
+                if "registers" in l or "smem" in l or "spill" in l),
+                  flush=True)
 
     device = torch.device("cuda")
     records = kernel_phase(device)

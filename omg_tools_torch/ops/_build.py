@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (sm_90a) into
 a shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout, into
 ``build/omg_tools_torch/`` at the repository root (listed in
-``.gitignore``); the library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``); the library's file name carries a hash of its source,
+the headers of ``csrc/`` and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 Nothing here runs at import time.
 """
 
@@ -33,8 +34,10 @@ SIGNATURES = {
         "omg_psd_solve_multi_f32": (_P, _P, _P, _I, _I, _I, _P),
     },
     "fused_alm": {
-        "omg_fused_inner_f32": (_P,) * 10 + (_I, _P, _P, _P, _I, _I, _P),
+        "omg_fused_inner_f32": (_P,) * 10 + (_I, _P, _P, _P, _I, _I, _I,
+                                             _P, _P),
         "omg_fused_layout": (_P, _I),
+        "omg_fused_smem": (_P, _I),
     },
 }
 
@@ -51,8 +54,12 @@ def _nvcc():
 
 
 def _lib_path(name):
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every header of
+    ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

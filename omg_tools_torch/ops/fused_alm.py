@@ -15,19 +15,39 @@ kinds (see ``ops/compact.py``):
 - ``quad``:  J = A + 2 Q x, and g = c + (A + Q x) x.
 
 :class:`FusedPlan` is the host part (numpy, float64): the deduplicated
-tables of the structure and their flat encoding for the CUDA kernel of
-``csrc/fused_alm.cu`` -- an int32 descriptor (families, runs, segments,
-table offsets, tail blocks) and, per in-knot phase, one flat buffer holding
-every table.  :func:`fused_inner_plain` is the kernel's arithmetic in
-PyTorch with a leading batch axis, reading the same flat buffer;
-:func:`fused_inner` takes it for CPU tensors and launches the kernel for
-CUDA tensors, counting launches in ``fused_inner.launches``.
+dense tables of the structure, which :func:`fused_inner_plain` reads (one
+flat buffer per in-knot phase), and their compressed encoding for the CUDA
+kernel of ``csrc/fused_alm.cu``, which never sees the dense tables:
 
-The kernel and the plain version form Q x and Q dx once per quad family
-and iteration: the line search's J dx = A dx + 2 x' Q dx reads the
-contraction Q dx, which holds because every Q row is symmetric (a
-Hessian; checked when the plan is built).  The Pallas kernel forms Q x a
-second and a third time instead.
+- an int32 descriptor (:meth:`FusedPlan.descriptor`, phase-independent):
+  the header, the tail blocks and their place in each lane's shared
+  memory, and every index list;
+- per phase, one float buffer of the values at the same positions
+  (:meth:`FusedPlan.phase_values`).
+
+Every list is *sliced*: items (rows, J entries, variables, Gauss-Newton
+targets) go in slices of 32, one warp's threads, and entry ``j`` of item
+``i`` lies at ``off[i] + 32 j`` with ``off[i] = base(slice) + i % 32``,
+so that a warp reads 32 consecutive words at each step.  The lists:
+
+- rows: J's non-zero pattern per row (the union over phases of A, TA and
+  Q), each entry a J position ``p`` with its variable, A0 value, the TA
+  sub-list (parameter slot, value) and the Q sub-list (variable, value):
+  J[p] = A0 + TA pq + 2 (Q x)[p]; and per row its C1 sub-list;
+- gradient: per variable, the J positions in its column (J' y);
+- Gauss-Newton: per hit entry of S, D (lower triangles) and C', the
+  pairs (u, v) of J positions of one row whose product d J[u] J[v] it
+  sums, in family and row order; no atomics.  The const families' H =
+  A' diag(d) A is formed the same way from A's row non-zeros (A is
+  1-2 % of the dense P table's size and needs no second code path), so
+  P is not encoded.
+
+:func:`fused_inner` takes the plain version for CPU tensors and launches
+the kernel for CUDA tensors, counting launches in ``fused_inner.launches``.
+The plain version forms Q x and Q dx once per quad family and iteration:
+the line search's J dx = A dx + 2 x' Q dx reads the contraction Q dx,
+which holds because every Q row is symmetric (a Hessian; checked when the
+plan is built).  The kernel forms J dx from J itself, the same quantity.
 """
 
 from __future__ import annotations
@@ -39,25 +59,81 @@ import torch
 
 from . import _build
 
-__all__ = ["FusedPlan", "fused_inner", "fused_inner_plain"]
+__all__ = ["FusedPlan", "fused_inner", "fused_inner_plain",
+           "lanes_per_block"]
 
 # descriptor layout, the same names as in csrc/fused_alm.cu, which reports
 # its own values through omg_fused_layout; the wrapper checks they agree
-MAGIC = 0x4B33
-HEADER = 16                    # header length; the tail blocks follow
-FAM = 48                       # length of one family record
-MAX_RUNS, MAX_SEGS, MAX_Q = 4, 4, 12
-# header fields
-(H_MAGIC, H_N, H_M, H_NV, H_H0, H_H, H_NB, H_NF, H_C0, H_C1, H_GF, H_PLEN,
- H_JBUF, H_FAM0, H_LEN) = range(15)
-# family record fields; runs (start, size), segments (oa, sa, ta, pa) and
-# parameter positions from F_RUNS, F_SEGS and F_QPOS
-F_KIND, F_ROW, F_MF, F_NF, F_NRUNS, F_NSEGS, F_NQ, F_A, F_TA, F_Q, F_P = \
-    range(11)
-F_RUNS, F_SEGS, F_QPOS = 12, 20, 36
-KIND_CODE = {"const": 0, "param": 1, "quad": 2}
-LAYOUT = (MAGIC, HEADER, FAM, MAX_RUNS, MAX_SEGS, MAX_Q, H_LEN, F_P, F_RUNS,
-          F_SEGS, F_QPOS)
+MAGIC = 0x4B34
+HEADER = 48                    # header length; the tail blocks follow
+SLICE = 32                     # items per slice of a sliced list
+MAX_BLOCKS, MAX_LANES, MAX_CANDS = 16, 2, 16
+MAX_J = 1 << 16                # J positions fit 16 bits (pairs u | v << 16)
+MAX_SIZE = 64                  # the head and each tail block, at most
+LANE_SCALARS = 8               # per-lane scalars: rho, slope, df, ...
+# header fields: sizes, value offsets (V_*, into one phase's values) and
+# index-array offsets (O_*, into the descriptor)
+(H_MAGIC, H_N, H_M, H_NV, H_H0, H_H, H_NB, H_NJ, H_ARROW, H_VLEN, H_LEN,
+ H_STAGE, H_NGN, H_NQ, H_NT, H_NC, H_NGR, H_NGE,
+ V_A, V_Q, V_T, V_C, V_C0, V_GF,
+ O_ROFF, O_RLEN, O_COFF, O_CLEN, O_CIDX,
+ O_COL, O_QOFF, O_QLEN, O_QIDX, O_TOFF, O_TLEN, O_TIDX,
+ O_GROFF, O_GRLEN, O_GRENT, O_GRROW,
+ O_GNOFF, O_GNLEN, O_GNDST, O_GNENT, O_GNROW, H_END) = range(46)
+# tail-block record (after the header): start, size, and the float
+# offsets of its factor D (packed lower triangle) and panel M in a lane's
+# arrow region; the Schur order follows the records
+B_START, B_SIZE, B_D, B_M, B_REC = range(5)
+# the kernel's phases of an iteration, in order (its optional clock counts)
+PHASES = ("rows", "targets", "ridge", "tail_factor", "schur", "head",
+          "back_substitute", "fallback", "line_rows", "line_search")
+LAYOUT = (MAGIC, HEADER, SLICE, MAX_BLOCKS, MAX_LANES, MAX_CANDS, H_END,
+          B_REC, LANE_SCALARS, len(PHASES))
+
+# the card's shared memory (H100, sm_90): per SM, and what the runtime
+# reserves per block; the wrapper aims at BLOCKS_PER_SM blocks an SM
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+SMEM_BLOCK_MAX = 232448
+BLOCKS_PER_SM = 2
+
+
+def _r4(count):
+    """``count`` rounded up to 4 (16-byte alignment of 4-byte words)."""
+    return -(-count // 4) * 4
+
+
+def _tri(i):
+    return i * (i + 1) // 2
+
+
+class _Sliced:
+    """Sliced layout of items with given list lengths: item ``i``'s entry
+    ``j`` at ``off[i] + 32 j``; ``size`` words in all."""
+
+    def __init__(self, lengths):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        self.len = lengths
+        self.off = np.zeros(len(lengths), dtype=np.int64)
+        base = 0
+        for s in range(0, len(lengths), SLICE):
+            w = int(lengths[s:s + SLICE].max())
+            self.off[s:s + SLICE] = base + np.arange(len(lengths[s:s + SLICE]))
+            base += SLICE * w
+        self.size = base
+
+    def positions(self, i):
+        return self.off[i] + SLICE * np.arange(self.len[i])
+
+
+def lanes_per_block(B, n_sm, smem):
+    """Lanes a block serves: enough blocks for BLOCKS_PER_SM an SM at
+    width B, and no more lanes than that share of an SM's shared memory
+    holds.  ``smem(L)``: a block's shared bytes for L lanes."""
+    budget = SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED
+    fit = max(L for L in range(MAX_LANES + 1) if L == 0 or smem(L) <= budget)
+    want = B // (BLOCKS_PER_SM * n_sm)
+    return max(1, min(MAX_LANES, fit, want))
 
 
 class _FamPlan(NamedTuple):
@@ -176,6 +252,7 @@ class FusedPlan:
             sizes.setdefault(sz, []).append(bi)
         self.schur_order = tuple(bi for bis in sizes.values() for bi in bis)
         self._layout()
+        self._compress()
 
     # -- flat encoding ------------------------------------------------------
     def _layout(self):
@@ -186,7 +263,7 @@ class FusedPlan:
         def take(count):
             nonlocal size
             at = size
-            size += -(-count // 4) * 4
+            size += _r4(count)
             return at
         self.off_A = [take(a[0].size) for a in self.uA]
         self.off_TA = [take(a[0].size) for a in self.uTA]
@@ -234,54 +311,242 @@ class FusedPlan:
             "gf": view(self.off_gf, (self.n_x,)),
         }
 
-    def descriptor(self):
-        """The int32 descriptor the CUDA kernel walks (layout in
-        ``csrc/fused_alm.cu``): header, tail blocks (start, size), the
-        Schur order, then one fixed-size record per family."""
-        nb, nf = len(self.blocks), len(self.fams)
-        fam0 = HEADER + 3 * nb
-        total = fam0 + FAM * nf
-        jbuf = max([(f.row_stop - f.row_start) * sum(z for _, z in f.runs)
-                    for f in self.fams if f.kind != "const"] + [1])
-        d = np.zeros(total, dtype=np.int32)
-        d[:H_LEN + 1] = (MAGIC, self.n_x, self.m, self.n_v, self.head[0],
-                         self.head[1], nb, nf, self.off_c0, self.off_C1,
-                         self.off_gf, self.phase_len, jbuf, fam0, total)
-        for bi, (s, sz) in enumerate(self.blocks):
-            d[HEADER + 2 * bi:HEADER + 2 * bi + 2] = (s, sz)
-        d[HEADER + 2 * nb:fam0] = self.schur_order
+    # -- the kernel's compressed encoding -----------------------------------
+    def _compress(self):
+        """Build the kernel's lists (module docstring) and the sources of
+        their values; :meth:`descriptor` and :meth:`phase_values` emit
+        them."""
+        h = self.head[1]
+        n, m = self.n_x, self.m
+        # a lane's arrow region: S (packed lower triangle), r_h, then per
+        # tail block its factor D (packed lower) and panel M (sz, h + 2)
+        off = _r4(_tri(h)) + _r4(h)
+        self.arrow_D, self.arrow_M = [], []
+        for (_, sz) in self.blocks:
+            self.arrow_D.append(off)
+            off += _r4(_tri(sz))
+            self.arrow_M.append(off)
+            off += _r4(sz * (h + 2))
+        self.arrow_len = off
+
+        # J's pattern per row: (family, row in family, local columns)
+        rows, pats, colvars = [], [], []
         for fi, f in enumerate(self.fams):
-            if (len(f.runs) > MAX_RUNS or len(f.segs) > MAX_SEGS
-                    or len(f.qpos) > MAX_Q):
-                raise ValueError(f"family {fi} exceeds the descriptor's "
-                                 "run/segment/parameter slots")
-            rec = d[fam0 + FAM * fi:fam0 + FAM * (fi + 1)]
-            rec[:F_P + 1] = (KIND_CODE[f.kind], f.row_start,
-                             f.row_stop - f.row_start,
-                             sum(z for _, z in f.runs), len(f.runs),
-                             len(f.segs), len(f.qpos), self.off_A[f.iA],
-                             -1 if f.iTA < 0 else self.off_TA[f.iTA],
-                             -1 if f.iQ < 0 else self.off_Q[f.iQ],
-                             -1 if f.iP < 0 else self.off_P[f.iP])
-            rec[F_RUNS:F_RUNS + 2 * len(f.runs)] = np.ravel(f.runs)
-            rec[F_SEGS:F_SEGS + 4 * len(f.segs)] = np.ravel(f.segs)
-            rec[F_QPOS:F_QPOS + len(f.qpos)] = f.qpos
-        return d
+            m_f = f.row_stop - f.row_start
+            cols = np.concatenate([np.arange(s, s + z) for s, z in f.runs])
+            pat = (self.uA[f.iA] != 0).any(0)
+            if f.iTA >= 0:
+                pat |= (self.uTA[f.iTA] != 0).any(0).any(-1)
+            if f.iQ >= 0:
+                pat |= (self.uQ[f.iQ].reshape(m_f, len(cols), len(cols))
+                        != 0).any(-1)
+            if f.row_start != len(rows):
+                raise ValueError(f"family {fi} does not start at row "
+                                 f"{len(rows)}")
+            pats.append(pat)
+            colvars.append(cols)
+            rows += [(fi, i, np.nonzero(pat[i])[0]) for i in range(m_f)]
+        R = _Sliced([len(js) for _, _, js in rows])
+        nJ = R.size
+        if nJ > MAX_J:
+            raise ValueError(f"J has {nJ} positions, the kernel takes "
+                             f"{MAX_J}")
+        col = np.zeros(nJ, np.int64)
+        rowof = np.zeros(nJ, np.int64)
+        pos = {}                                # (row, local column) -> p
+        t_lists = [[] for _ in range(nJ)]       # (slot, (iTA, i, j, q))
+        q_lists = [[] for _ in range(nJ)]       # (variable, (iQ, row, k))
+        a_src = []                              # (p, iA, i, j)
+        for r, (fi, i, js) in enumerate(rows):
+            f = self.fams[fi]
+            n_f = len(colvars[fi])
+            for j, p in zip(js, R.positions(r)):
+                pos[(r, j)] = p
+                col[p] = colvars[fi][j]
+                rowof[p] = r
+                a_src.append((p, f.iA, i, j))
+                if f.iTA >= 0:
+                    for q in np.nonzero(
+                            (self.uTA[f.iTA][:, i, j] != 0).any(0))[0]:
+                        t_lists[p].append((f.qpos[q], (f.iTA, i, j, q)))
+                if f.iQ >= 0:
+                    qrow = self.uQ[f.iQ][i * n_f + j]
+                    for k in np.nonzero(qrow)[0]:
+                        q_lists[p].append((colvars[fi][k],
+                                           (f.iQ, i * n_f + j, k)))
+        Tl = _Sliced([len(t) for t in t_lists])
+        Ql = _Sliced([len(q) for q in q_lists])
+        c_lists = [[(q, (r, q)) for q in np.nonzero(
+            (self.C1[:, r] != 0).any(0))[0]] for r in range(m)]
+        Cl = _Sliced([len(c) for c in c_lists])
+
+        def flat(lists, sl):
+            idx = np.zeros(sl.size, np.int64)
+            src = []
+            for i, lst in enumerate(lists):
+                for p, (k, s) in zip(sl.positions(i), lst):
+                    idx[p] = k
+                    src.append((p,) + s)
+            return idx, src
+        t_idx, t_src = flat(t_lists, Tl)
+        q_idx, q_src = flat(q_lists, Ql)
+        c_idx, c_src = flat(c_lists, Cl)
+
+        # the gradient, J'y: per variable, the J positions of its column
+        gr_lists = [[] for _ in range(n)]
+        for r, (_, _, js) in enumerate(rows):
+            for j in js:
+                gr_lists[col[pos[(r, j)]]].append(pos[(r, j)])
+        Gr = _Sliced([len(g) for g in gr_lists])
+        gr_ent = np.zeros(Gr.size, np.int64)
+        for v, lst in enumerate(gr_lists):
+            gr_ent[Gr.positions(v)] = lst
+
+        # Gauss-Newton: per hit target, the (u, v) pairs (module docstring)
+        gn = {}
+        for r, (fi, _, js) in enumerate(rows):
+            f = self.fams[fi]
+            tgt = []
+            for j in js:
+                for (oa, sa, ta, pa) in f.segs:
+                    if oa <= j < oa + sa:
+                        tgt.append((ta, pa + j - oa))
+            for a, (ta, pa) in zip(js, tgt):
+                for b, (tb, pb) in zip(js, tgt):
+                    u, v = pos[(r, a)], pos[(r, b)]
+                    if ta < 0 and tb < 0:
+                        if pa >= pb:
+                            gn.setdefault(_tri(pa) + pb, []).append((u, v))
+                    elif ta < 0:               # C' kept pre-transposed
+                        gn.setdefault(self.arrow_M[tb] + pb * (h + 2) + pa,
+                                      []).append((v, u))
+                    elif tb >= 0:
+                        if ta != tb:
+                            raise ValueError(f"family {fi} couples tail "
+                                             f"blocks {ta} and {tb}")
+                        if pa >= pb:
+                            gn.setdefault(self.arrow_D[ta] + _tri(pa) + pb,
+                                          []).append((u, v))
+        # longest lists first: less padding in each slice
+        dst = sorted(gn, key=lambda t: -len(gn[t]))
+        Gn = _Sliced([len(gn[t]) for t in dst])
+        gn_ent = np.zeros(Gn.size, np.int64)
+        for i, t in enumerate(dst):
+            gn_ent[Gn.positions(i)] = [u | (v << 16) for u, v in gn[t]]
+
+        self._k = dict(R=R, col=col, rowof=rowof, Tl=Tl, Ql=Ql,
+                       Cl=Cl, t_idx=t_idx, q_idx=q_idx, c_idx=c_idx,
+                       a_src=np.array(a_src, np.int64).reshape(-1, 4),
+                       t_src=t_src, q_src=q_src, c_src=c_src, Gr=Gr,
+                       gr_ent=gr_ent, Gn=Gn, gn_ent=gn_ent,
+                       gn_dst=np.array(dst, np.int64))
+        # value offsets in one phase's buffer
+        self.voff = {}
+        size = 0
+        for key, count in (("A", nJ), ("Q", Ql.size), ("T", Tl.size),
+                           ("C", Cl.size), ("c0", m), ("gf", n)):
+            self.voff[key] = size
+            size += _r4(count)
+        self.values_len = size
+        self.n_j = nJ
+
+    def phase_values(self, phase):
+        """One phase's float64 values at the descriptor's positions."""
+        k = self._k
+        buf = np.zeros(self.values_len)
+        a = k["a_src"]
+        for iA in np.unique(a[:, 1]):
+            sel = a[a[:, 1] == iA]
+            buf[self.voff["A"] + sel[:, 0]] = \
+                self.uA[iA][phase][sel[:, 2], sel[:, 3]]
+        for p, iT, i, j, q in k["t_src"]:
+            buf[self.voff["T"] + p] = self.uTA[iT][phase][i, j, q]
+        for p, iQ, e, kk in k["q_src"]:
+            buf[self.voff["Q"] + p] = self.uQ[iQ][e, kk]
+        for p, r, q in k["c_src"]:
+            buf[self.voff["C"] + p] = self.C1[phase][r, q]
+        buf[self.voff["c0"]:self.voff["c0"] + self.m] = self.c0[phase]
+        buf[self.voff["gf"]:self.voff["gf"] + self.n_x] = self.gf[phase]
+        return buf
+
+    def stage_len(self):
+        """Descriptor words a block copies into shared memory: the header,
+        the tail-block records and the Schur order."""
+        return HEADER + (B_REC + 1) * len(self.blocks)
+
+    def lane_floats(self):
+        """Floats of one lane's working set in shared memory, in the
+        order of ``lane_layout`` in ``csrc/fused_alm.cu``: x, dx, the
+        gradient, pv, the rows' g, y (then J dx) and dx'Q dx, J at its
+        positions, the arrow region, the lane's scalars."""
+        n, m = self.n_x, self.m
+        return sum(_r4(c) for c in (n, n, n, self.n_v, m, m, m, self.n_j,
+                                    self.arrow_len, LANE_SCALARS))
+
+    def smem_bytes(self, lanes):
+        """Shared memory of a block serving ``lanes`` lanes."""
+        return 4 * (_r4(self.stage_len()) + lanes * self.lane_floats())
+
+    def descriptor(self):
+        """The int32 descriptor the CUDA kernel reads (layout in
+        ``csrc/fused_alm.cu``): header, tail-block records, Schur order,
+        then every index array, each 16-byte aligned."""
+        k = self._k
+        nb = len(self.blocks)
+        arrays = [
+            (O_ROFF, k["R"].off), (O_RLEN, k["R"].len),
+            (O_COFF, k["Cl"].off), (O_CLEN, k["Cl"].len),
+            (O_CIDX, k["c_idx"]),
+            (O_COL, k["col"]),
+            (O_QOFF, k["Ql"].off), (O_QLEN, k["Ql"].len),
+            (O_QIDX, k["q_idx"]),
+            (O_TOFF, k["Tl"].off), (O_TLEN, k["Tl"].len),
+            (O_TIDX, k["t_idx"]),
+            (O_GROFF, k["Gr"].off), (O_GRLEN, k["Gr"].len),
+            (O_GRENT, k["gr_ent"]), (O_GRROW, k["rowof"][k["gr_ent"]]),
+            (O_GNOFF, k["Gn"].off), (O_GNLEN, k["Gn"].len),
+            (O_GNDST, k["gn_dst"]), (O_GNENT, k["gn_ent"]),
+            (O_GNROW, k["rowof"][k["gn_ent"] & 0xffff])]
+        at = _r4(self.stage_len())
+        offs = {}
+        for field, a in arrays:
+            offs[field] = at
+            at += _r4(len(a))
+        d = np.zeros(at, dtype=np.int64)
+        d[:O_ROFF] = (MAGIC, self.n_x, self.m, self.n_v, self.head[0],
+                      self.head[1], nb, self.n_j, self.arrow_len,
+                      self.values_len, at, self.stage_len(), len(k["gn_dst"]),
+                      k["Ql"].size, k["Tl"].size, k["Cl"].size, k["Gr"].size,
+                      k["Gn"].size, self.voff["A"], self.voff["Q"],
+                      self.voff["T"], self.voff["C"], self.voff["c0"],
+                      self.voff["gf"])
+        for bi, (s, sz) in enumerate(self.blocks):
+            d[HEADER + B_REC * bi:HEADER + B_REC * (bi + 1)] = (
+                s, sz, self.arrow_D[bi], self.arrow_M[bi])
+        d[HEADER + B_REC * nb:self.stage_len()] = self.schur_order
+        for field, a in arrays:
+            d[field] = offs[field]
+            d[offs[field]:offs[field] + len(a)] = a
+        return d.astype(np.int32)
 
     def shared(self, dtype, device):
-        """The kernel's shared operands, built once: ``tables`` (spk,
-        phase_len) on ``device``, the descriptor on ``device`` and on the
-        host.  Slice one phase with :meth:`slice_phase`."""
+        """The operands, built once: the plain version's dense ``tables``
+        (spk, phase_len) and the kernel's ``vals`` (spk, values_len) on
+        ``device``, the kernel's descriptor on ``device`` and on the host.
+        Slice one phase with :meth:`slice_phase`."""
         desc = self.descriptor()
         tables = np.stack([self.phase_tables(ph) for ph in range(self.spk)])
+        vals = np.stack([self.phase_values(ph) for ph in range(self.spk)])
         return {"tables": torch.as_tensor(tables, dtype=dtype, device=device),
+                "vals": torch.as_tensor(vals, dtype=dtype, device=device),
                 "desc": torch.as_tensor(desc, device=device),
                 "desc_host": desc}
 
     @staticmethod
     def slice_phase(shared, phase):
         """The operands of one in-knot phase (a host int)."""
-        return dict(shared, tables=shared["tables"][phase])
+        return dict(shared, tables=shared["tables"][phase],
+                    vals=shared["vals"][phase])
 
 
 # -- the plain version ------------------------------------------------------
@@ -322,6 +587,26 @@ def _bwd_(L, M):
 def _seg_start(plan, ta, pa):
     """Variable index of local offset ``pa`` in target ``ta`` (-1: head)."""
     return (plan.head[0] if ta < 0 else plan.blocks[ta][0]) + pa
+
+
+def _scatter(plan, f, g_f, H, grad, S, D, M):
+    """Add one family's gradient g_f (B, n_f) and Gauss-Newton block H
+    (B, n_f, n_f) into grad, the head S, the tail blocks D and the panels M
+    (C' pre-transposed; the (block, head) mirror pairs skipped)."""
+    for (oa, sa, ta, pa) in f.segs:
+        s = _seg_start(plan, ta, pa)
+        grad[:, s:s + sa] += g_f[:, oa:oa + sa]
+        for (ob, sb, tb, pb) in f.segs:
+            if ta >= 0 and tb < 0:
+                continue                           # mirror of (head, block)
+            if ta < 0 and tb < 0:
+                S[:, pa:pa + sa, pb:pb + sb] += H[:, oa:oa + sa, ob:ob + sb]
+            elif ta < 0:                           # C' kept pre-transposed
+                M[tb][:, pb:pb + sb, pa:pa + sa] += H[:, ob:ob + sb,
+                                                      oa:oa + sa]
+            else:
+                D[ta][:, pa:pa + sa, pb:pb + sb] += H[:, oa:oa + sa,
+                                                      ob:ob + sb]
 
 
 def fused_inner_plain(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
@@ -382,21 +667,7 @@ def fused_inner_plain(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
             else:
                 g_f = (J * y[:, :, None]).sum(1)
                 H = torch.einsum("bkr,bks->brs", J * d[:, :, None], J)
-            for (oa, sa, ta, pa) in f.segs:
-                s = _seg_start(plan, ta, pa)
-                grad[:, s:s + sa] += g_f[:, oa:oa + sa]
-                for (ob, sb, tb_, pb) in f.segs:
-                    if ta >= 0 and tb_ < 0:
-                        continue                   # mirror of (head, block)
-                    if ta < 0 and tb_ < 0:
-                        S[:, pa:pa + sa, pb:pb + sb] += H[:, oa:oa + sa,
-                                                          ob:ob + sb]
-                    elif ta < 0:                   # C' kept pre-transposed
-                        M[tb_][:, pb:pb + sb, pa:pa + sa] += \
-                            H[:, ob:ob + sb, oa:oa + sa]
-                    else:
-                        D[ta][:, pa:pa + sa, pb:pb + sb] += H[:, oa:oa + sa,
-                                                              ob:ob + sb]
+            _scatter(plan, f, g_f, H, grad, S, D, M)
         r_h = grad[:, h0:h0 + h].clone()
         for bi, (s, sz) in enumerate(plan.blocks):
             M[bi][:, :, h] = grad[:, s:s + sz]
@@ -499,6 +770,14 @@ def _load():
     return lib
 
 
+def kernel_smem_bytes(desc_host, lanes):
+    """The shared memory the CUDA side lays out for a block of ``lanes``
+    lanes of this descriptor (-1: a plan or width it refuses); on the card
+    only, to hold :meth:`FusedPlan.smem_bytes` to it."""
+    desc_host = np.ascontiguousarray(desc_host, dtype=np.int32)
+    return int(_load().omg_fused_smem(desc_host.ctypes.data, int(lanes)))
+
+
 def _check(named, device):
     for name, t in named:
         if t.device != device:
@@ -509,12 +788,19 @@ def _check(named, device):
             raise ValueError(f"{name} must be contiguous")
 
 
-def fused_inner(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_inner(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner, clocks=None):
     """``n_inner`` fused ALM inner iterations for a batch of lanes (the
     arguments of :func:`fused_inner_plain`).  CPU tensors take the plain
-    version; CUDA float32 tensors launch K3; anything else raises."""
+    version; CUDA float32 tensors launch K3, whose blocks serve the lanes
+    :func:`lanes_per_block` picks; anything else raises.
+    ``clocks``: None, or an int64 tensor of len(PHASES) on the card to
+    which every block adds the clock cycles it spent in each phase."""
     named = (("x", x), ("lam", lam), ("rho", rho), ("pv", pv), ("lb", lb),
-             ("ub", ub), ("tables", fs["tables"]))
+             ("ub", ub), ("vals", fs["vals"]))
     if all(t.device.type == "cpu" for _, t in named):
         return fused_inner_plain(plan, fs, x, lam, rho, pv, lb, ub, opt,
                                  n_inner)
@@ -524,7 +810,7 @@ def fused_inner(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
     B = x.shape[0]
     n, m, n_v = plan.n_x, plan.m, plan.n_v
     want = {"x": (B, n), "lam": (B, m), "rho": (B,), "pv": (B, n_v),
-            "lb": (m,), "ub": (m,), "tables": (plan.phase_len,)}
+            "lb": (m,), "ub": (m,), "vals": (plan.values_len,)}
     for name, t in named:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
@@ -532,7 +818,9 @@ def fused_inner(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
     desc, desc_host = fs["desc"], np.ascontiguousarray(fs["desc_host"],
                                                        dtype=np.int32)
     if desc.device != x.device or desc.dtype != torch.int32 \
-            or desc.numel() != desc_host.size:
+            or desc.numel() != desc_host.size \
+            or tuple(desc_host[[H_N, H_M, H_NV, H_VLEN]]) != (
+                n, m, n_v, plan.values_len):
         raise ValueError("the descriptor must be the plan's int32 "
                          "descriptor on the lanes' device")
     x_out = torch.empty_like(x)
@@ -542,13 +830,20 @@ def fused_inner(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
         return x_out, gv, stat
     opts = np.asarray([opt.armijo, opt.max_step, opt.gn_delta_rel,
                        opt.delta, *opt.ls_candidates], dtype=np.float64)
+    lanes = lanes_per_block(B, _sm_count(x.device), plan.smem_bytes)
+    if clocks is not None and (clocks.device != x.device
+                               or clocks.dtype != torch.int64
+                               or tuple(clocks.shape) != (len(PHASES),)):
+        raise ValueError("clocks must be an int64 tensor of len(PHASES) on "
+                         "the lanes' device")
     lib = _load()
     err = lib.omg_fused_inner_f32(
-        desc_host.ctypes.data, desc.data_ptr(), fs["tables"].data_ptr(),
+        desc_host.ctypes.data, desc.data_ptr(), fs["vals"].data_ptr(),
         lb.data_ptr(), ub.data_ptr(), x.data_ptr(), lam.data_ptr(),
         rho.data_ptr(), pv.data_ptr(), opts.ctypes.data,
         len(opt.ls_candidates), x_out.data_ptr(), gv.data_ptr(),
-        stat.data_ptr(), B, int(n_inner),
+        stat.data_ptr(), B, int(n_inner), int(lanes),
+        None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_alm kernel launch failed (cudaError {err})")
