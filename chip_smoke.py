@@ -7,13 +7,14 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi); CUDA must exist;
 2. build: compile the CUDA kernels from ``omg_tools_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; ptxas' registers, stack
+   frame and spills of every kernel instance;
 3. kernels K1/K2: each against its plain PyTorch version on random SPD
-   inputs at the shapes of the compact-arrow path (and of its rescue
-   batch), with CUDA-event times of the kernel, the plain version and a
-   one-call library yardstick (``torch.linalg.cholesky_ex`` +
-   ``torch.cholesky_solve``, never used by the port) beside the least time
-   the card could take;
+   inputs at the shapes of the compact-arrow path, of its rescue batch and
+   (K1) of the dense and generic ALM modes, in float32, and at the main
+   shapes in float64; the variant each shape runs (a register class at
+   the main shapes); one-call CUDA-event times (``call_ms``) and the plain
+   version's;
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
    horizon at 10 Hz) and its float32 runner, which must pick the
@@ -24,26 +25,39 @@ Phases, in order; any failure raises and exits non-zero:
    well-conditioned ridge, the kernel against its plain float32 version
    within a small tolerance (step, g, gradient norm); with the bench
    options, the merit it reaches and its x against a float64 run of the
-   plain version (``k3_kernel_phase``); CUDA-event times beside the least
-   time from the plan's non-zero arithmetic (``k3_work``); the lanes a
-   block serves and its shared memory (held to the CUDA side's count), and
-   the share of each phase of an iteration in the blocks' clock cycles
-   (a launch with the clock profile on, whose outputs must equal the
-   unprofiled launch's bit for bit);
+   plain version (``k3_kernel_phase``); the least time from the plan's
+   non-zero arithmetic (``k3_work``); the lanes a block serves and its
+   shared memory (held to the CUDA side's count), and the share of each
+   phase of an iteration in the blocks' clock cycles (a launch with the
+   clock profile on, whose outputs must equal the unprofiled launch's bit
+   for bit);
 6. main path: the B = 4096, 20-step batched rollout in float32 on the
    fused structure, at the bench settings (budgets 3x8/1x7, 2 outer
    rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
    counters are zeroed before and read after: K3 must have run, K1 and K2
    not;
 7. profile: one fused MPC step traced with torch.profiler -- the device's
-   kernel time against the step's wall time, and the host time of each
-   span;
+   kernel time against the step's wall time, the device time of K1, K2 and
+   K3, and the host time of each span;
 8. compact-arrow path: the same runner with its fused plan taken off
    (``runner.fused_plan = None``, the one selector of the path), a 3-step
-   rollout of the same batch; K1 and K2 must have run;
-9. cross-check: the one-period-ahead planned state of the fused cold
-   solve for 64 of those scenarios, card (float32) against the port on the
-   CPU (float64), within the 2 cm parity bound of ``bench.py``.
+   rollout of the same batch; K1 and K2 must have run; then one of its
+   steps traced as in 7;
+9. cross-check: the one-period-ahead planned state of the cold solve of
+   64 of those scenarios by the port on the CPU in float64, against the
+   card's float32 fused solve and against the same float64 runner on the
+   card (``runner.to``: compact-arrow, K1 and K2 in float64, launches
+   counted), each within the 2 cm parity bound of ``bench.py``, beside the
+   CPU solve's own sensitivity to a 1e-15 perturbation of its start;
+10. times: the device time of K1 and K2 at every shape of 3 (``device_ms``:
+    the profiler's self CUDA time of the kernel's own name over 20
+    launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
+    kernels on the same inputs, and K3's at both shapes of 5; taken last,
+    so that no profiler session but 7's precedes the timed rollouts.
+
+``--kernels-only`` runs phases 1-3 with the device times and stops (no
+final line); run from the root of another checkout of the port it times
+that tree's kernels with the same yardstick.
 
 The last two lines before the final one are the ``kernels`` JSON object and
 the card's name and power limit as nvidia-smi prints them; the final line
@@ -82,6 +96,10 @@ K3_GATE_FACTOR = 10.0     # kernel p99 error <= 10x the plain f32 version's
 K3_GATE_FLOOR = 1e-6      # ... or this fraction of max |x|
 K3_SHAPES = (("main", BATCH, BUDGETS[0][1]), ("rescue", RESCUE, INNER_ITER))
 TOL_REL = 5e-5            # kernel vs plain: max |diff| <= TOL_REL * max |plain|
+TOL_REL_F64 = 1e-10       # the same in float64
+DEVICE_REPS = 20          # launches a device time is taken over
+F64_PERTURB = 1e-15       # relative perturbation of x0: the cold solve's
+                          # own sensitivity to rounding, on the CPU
 FEAS_P99_GATE = 1e-3      # bench.py:446
 PARITY_GATE_M = 0.02      # bench.py:443
 
@@ -89,16 +107,21 @@ PARITY_GATE_M = 0.02      # bench.py:443
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-# (name, entry point, TPU kernel it replaces, main shape, rescue shape);
-# shapes are (N systems, n, r)
+# (name, entry point, TPU kernel it replaces, shapes); a shape is (tag,
+# (N systems, n, r)): the compact-arrow path's (main), its rescue batch's
+# and, for K1, the size of the dense and generic ALM modes' head solve
 KERNELS = (
     ("K1 chol_solve r=1 (psd_solve)", "psd_solve",
-     "omg_tools_tpu/ops/pallas_kernels.py:40", (4096, 26, 1), (128, 26, 1)),
+     "omg_tools_tpu/ops/pallas_kernels.py:40",
+     (("main", (4096, 26, 1)), ("rescue", (128, 26, 1)),
+      ("dense", (256, 151, 1)))),
     ("K2 chol_solve multi-RHS (psd_solve_multi)", "psd_solve_multi",
-     "omg_tools_tpu/ops/pallas_kernels.py:118", (20480, 33, 27),
-     (640, 33, 27)),
+     "omg_tools_tpu/ops/pallas_kernels.py:118",
+     (("main", (20480, 33, 27)), ("rescue", (640, 33, 27)))),
 )
 SOURCE = "omg_tools_torch/csrc/chol_solve.cu"
+CHOL_KERNEL = "chol"      # a substring of the K1/K2 kernels' names
+K3_KERNEL = "fused_alm_kernel"
 K3_NAME = "K3 fused ALM inner loop (fused_inner)"
 K3_SOURCE = "omg_tools_torch/csrc/fused_alm.cu"
 K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
@@ -117,8 +140,78 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, name=None, reps=DEVICE_REPS, warmup=3):
+    """Device time of one call of ``fn``: the self CUDA time that
+    torch.profiler records for the kernels of ``reps`` calls after
+    warm-up (only those whose name holds ``name``, if given).  Each
+    kernel's mean time a launch counts as often as the kernel runs a call
+    (its launches over ``reps``, rounded, at least once), so that a launch
+    the profiler failed to record does not lower the figure.  Returns (ms,
+    {kernel name: launches recorded})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, names = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count and (
+                name is None or name in e.key):
+            us += e.self_device_time_total / e.count \
+                * max(1, round(e.count / reps))
+            names[e.key[:90]] = e.count
+    check(us > 0, f"no device time recorded for {name or 'the call'}: "
+          f"{[e.key[:60] for e in prof.key_averages()]}")
+    return us / 1e3, names
+
+
+def ptxas_report(log):
+    """One record per compiled kernel of an ``nvcc -Xptxas -v`` log: its
+    (demangled where c++filt exists) name, registers, stack frame, spill
+    stores and loads, and shared memory."""
+    import re
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(e["kernel"] for e in entries),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, nm in zip(entries, names):
+                e["kernel"] = nm.replace("(anonymous namespace)::",
+                                         "").split("(")[0]
+    except OSError:
+        pass
+    return entries
+
+
 def time_ms(fn, reps=25, warmup=3):
-    """Median of ``reps`` single-launch CUDA-event timings, after warm-up."""
+    """Median of ``reps`` single-call CUDA-event timings, after warm-up:
+    from the card idle, so the wrapper's host time is in it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -152,35 +245,61 @@ def timed_call_ms(fn):
     return 1e3 * (time.perf_counter() - t0)
 
 
-def spd_inputs(N, n, r, seed, device):
-    """Random SPD systems H = A A' / n + I and panels G (float32)."""
+def spd_inputs(N, n, r, seed, device, dtype=None):
+    """Random SPD systems H = A A' / n + I and panels G (float32 unless
+    ``dtype`` says otherwise)."""
     import torch
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=device).manual_seed(seed)
-    A = torch.randn((N, n, n), generator=gen, device=device)
-    H = A @ A.transpose(1, 2) / n + torch.eye(n, device=device)
-    G = torch.randn((N, n, r), generator=gen, device=device)
+    A = torch.randn((N, n, n), generator=gen, device=device, dtype=dtype)
+    H = A @ A.transpose(1, 2) / n + torch.eye(n, device=device, dtype=dtype)
+    G = torch.randn((N, n, r), generator=gen, device=device, dtype=dtype)
     return H.contiguous(), G.contiguous()
 
 
-def kernel_phase(device):
-    """Phase 3: returns one record per kernel (main-path shape) and prints
-    the rescue-shape checks."""
+def _chol_call(pk, entry, H, G):
+    """(kernel wrapper, plain version, arguments) of one K1/K2 call; K2
+    takes the arrow step's layout, (B, k, b, b) blocks with (B, k, b, r)
+    panels, k = 5 where N allows it."""
+    N, n, r = G.shape
+    if entry == "psd_solve":
+        return pk.psd_solve, pk.psd_solve_plain, (H, G[..., 0].contiguous())
+    k = 5 if N % 5 == 0 else 1
+    return (pk.psd_solve_multi, pk.psd_solve_multi_plain,
+            (H.reshape(N // k, k, n, n), G.reshape(N // k, k, n, r)))
+
+
+def kernel_phase(device, timed=True):
+    """K1 and K2 against their plain versions at each shape of
+    ``KERNELS``, in float32 and, at the main shapes, in float64; prints one
+    ``kernel_check`` line per check and returns one record per kernel
+    (main shape).  The checks run first (phase 3, ``timed=False``: no
+    device times); the device times are taken at the end (``timed=True``),
+    after the timed rollouts, so that no profiler session precedes those.
+
+    ``ms`` is the kernel's device time (``device_ms``: the profiler's self
+    CUDA time of the kernel's own name over DEVICE_REPS launches), with the
+    inputs warm in L2 where they fit (K1: 6.6 MB at the main shape; K2's
+    192 MB do not fit); ``call_ms`` the median CUDA-event time of one
+    wrapper call from the card idle (host time included); ``library_ms``
+    the device time of every kernel of ``cholesky_ex`` + ``cholesky_solve``
+    on the same inputs, a yardstick the port never calls."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
+    # an older tree's wrappers (float32 only, no variant()) can be timed
+    # with the same yardstick: ``--kernels-only`` run from its root
+    variant = getattr(pk, "variant", None)
     records = []
-    for name, entry, replaces, main_shape, rescue_shape in KERNELS:
+    for name, entry, replaces, shapes in KERNELS:
         rec = None
-        for tag, (N, n, r) in (("main", main_shape), ("rescue", rescue_shape)):
+        for tag, (N, n, r) in shapes:
             H, G = spd_inputs(N, n, r, seed=N + n + r, device=device)
-            if entry == "psd_solve":
-                args = (H, G[..., 0].contiguous())
-                kern, plain = pk.psd_solve, pk.psd_solve_plain
-            else:
-                # the arrow step's layout: (B, k, b, b) blocks, (B, k, b, r)
-                k = 5
-                args = (H.reshape(N // k, k, n, n),
-                        G.reshape(N // k, k, n, r))
-                kern, plain = pk.psd_solve_multi, pk.psd_solve_multi_plain
+            kern, plain, args = _chol_call(pk, entry, H, G)
+            var = variant(n, r, torch.float32) if variant else None
+            if variant and tag != "dense":
+                check(var.startswith("reg"),
+                      f"{name} {tag}: ran the {var} variant, not a register "
+                      "class")
             got = kern(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -195,18 +314,28 @@ def kernel_phase(device):
                 L, _ = torch.linalg.cholesky_ex(H)
                 return torch.cholesky_solve(G, L)
             lib_err = float((library().reshape(got.shape) - want).abs().max())
-            ms = time_ms(lambda: kern(*args))
-            plain_ms = time_ms(lambda: plain(*args), reps=5, warmup=1)
-            library_ms = time_ms(library)
+            ms = library_ms = None
+            names, library_kernels = {}, {}
+            if timed:
+                ms, names = device_ms(lambda: kern(*args), CHOL_KERNEL)
+                check(len(names) == 1 and sum(names.values()) <= DEVICE_REPS,
+                      f"{name} {tag}: {names} launched, not one kernel a "
+                      "call")
+                library_ms, library_kernels = device_ms(library)
+            call_ms = time_ms(lambda: kern(*args))
+            plain_ms = time_ms(lambda: plain(*args), reps=3, warmup=1)
             # the lower triangle of H is all the function reads of it
             nbytes = 4 * (N * n * (n + 1) // 2 + 2 * N * n * r)
             flops = N * (n ** 3 / 3.0 + 2.0 * n * n * r)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_F32_FLOPS * 1e3
             line = {"name": name, "shape": tag, "N": N, "n": n, "r": r,
-                    "max_abs_err": err, "scale": scale,
-                    "library_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+                    "dtype": "float32", "variant": var,
+                    "kernel": sorted(names), "max_abs_err": err,
+                    "scale": scale, "library_err": lib_err, "ms": ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms,
+                    "library_kernels": len(library_kernels),
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
@@ -217,9 +346,33 @@ def kernel_phase(device):
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": line["bound_ms"],
                        "bound_by": line["bound_by"],
-                       "library_ms": library_ms, "shape": [N, n, r]}
+                       "library_ms": library_ms, "call_ms": call_ms,
+                       "variant": var, "shape": [N, n, r]}
+            if tag == "main" and variant:
+                kernel_phase_f64(name, entry, N, n, r, device, timed)
         records.append((entry, rec))
     return records
+
+
+def kernel_phase_f64(name, entry, N, n, r, device, timed):
+    """The float64 instance against the plain float64 version."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    H, G = spd_inputs(N, n, r, seed=N + n + r, device=device,
+                      dtype=torch.float64)
+    kern, plain, args = _chol_call(pk, entry, H, G)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()), f"{name} f64: non-finite output")
+    check(err <= TOL_REL_F64 * scale,
+          f"{name} f64: max |kernel - plain| {err} > {TOL_REL_F64} * {scale}")
+    ms = device_ms(lambda: kern(*args), CHOL_KERNEL)[0] if timed else None
+    line = {"name": name, "shape": "main", "N": N, "n": n, "r": r,
+            "dtype": "float64", "variant": pk.variant(n, r, torch.float64),
+            "max_abs_err": err, "scale": scale, "ms": ms}
+    print("kernel_check " + json.dumps(line), flush=True)
 
 
 def build_problem(T):
@@ -384,7 +537,7 @@ def k3_kernel_phase(runner, consts, x0, p0):
               "values_per_phase": plan.values_len, "j_positions": plan.n_j,
               "arrow_floats": plan.arrow_len,
               "lane_bytes": 4 * plan.lane_floats(), "sms": n_sm}
-    rec = None
+    rec, timers = None, {}
     for tag, B, n_inner in K3_SHAPES:
         B = min(B, x0.shape[0])
         lanes = fa.lanes_per_block(B, n_sm, plan.smem_bytes)
@@ -403,7 +556,7 @@ def k3_kernel_phase(runner, consts, x0, p0):
             return fn(plan, fs, a["x"], a["lam"], a["rho"], a["pv"], a["lb"],
                       a["ub"], o, n)
 
-        def kern():
+        def kern(run=run):      # bound now: timed after the loop
             return run(fa.fused_inner, opt)
 
         def plain():
@@ -457,7 +610,8 @@ def k3_kernel_phase(runner, consts, x0, p0):
               f"{K3_NAME} {tag}: p99 error vs float64 {pct(err_k, 0.99)} > "
               f"{gate}")
 
-        ms = time_ms(kern, reps=10, warmup=2)
+        timers[tag] = kern
+        call_ms = time_ms(kern, reps=5, warmup=0)
         # where a block's time goes: the clock cycles of each phase of an
         # iteration, summed over blocks (one more launch, whose outputs
         # must equal the unprofiled launch's bit for bit)
@@ -495,20 +649,31 @@ def k3_kernel_phase(runner, consts, x0, p0):
                                      "p99": pct(err_p, 0.99),
                                      "max": float(err_p.max())},
                 "gate": gate,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": max(t_bytes, t_ops),
+                "call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops}
         print("kernel_check " + json.dumps(line), flush=True)
         if tag == "main":
             rec = {"name": K3_NAME, "route": "cuda", "source": K3_SOURCE,
                    "replaces": K3_REPLACES, "launches": None,
-                   "max_abs_err": well_line["max_abs_err_x"], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
+                   "max_abs_err": well_line["max_abs_err_x"], "ms": None,
+                   "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
                    "bound_by": line["bound_by"], "library_ms": None,
                    "shape": [B, n_inner], "lanes_per_block": lanes,
                    "smem_bytes_per_block": smem}
-    return ("fused_inner", rec)
+    return ("fused_inner", rec), timers
+
+
+def k3_time_phase(rec, timers):
+    """K3's device time at each shape of ``k3_kernel_phase`` (taken at the
+    end, as K1's and K2's); the main shape's goes to the record."""
+    for tag, kern in timers.items():
+        ms, _ = device_ms(kern, K3_KERNEL, reps=10, warmup=2)
+        print("kernel_time " + json.dumps({"name": K3_NAME, "shape": tag,
+                                           "ms": ms}), flush=True)
+        if tag == "main":
+            rec["ms"] = ms
 
 
 def timed_rollouts(roll, st, p0, state, consts, timed_runs):
@@ -632,10 +797,11 @@ def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
     return launches
 
 
-def profile_phase(runner, st, p0, state):
-    """One traced fused MPC step (k = 0, with its rescue) under torch.profiler:
-    the device's kernel time against the same step's untraced wall time,
-    the kernels launched, and the host time of each span of the port."""
+def profile_phase(runner, st, p0, state, path):
+    """One traced MPC step (k = 0, with its rescue) of ``runner``'s current
+    path under torch.profiler: the device's kernel time against the same
+    step's untraced wall time, the kernels launched, the device time of
+    K1, K2 and K3 by kernel name, and the host time of each span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -647,11 +813,19 @@ def profile_phase(runner, st, p0, state):
         traced_ms = timed_call_ms(lambda: roll(st, p0, state))
     events = prof.key_averages()
     kernel_us, kernels, spans = 0.0, 0, {}
+    ours = {"K1": [0.0, 0], "K2": [0.0, 0], "K3": [0.0, 0]}
     for e in events:
         span = e.key.startswith(("alm.", "rollout."))
         if e.device_type == DeviceType.CUDA and not span:
             kernel_us += e.self_device_time_total
             kernels += e.count
+            # the K1/K2 instances are told apart by r = 1 (", true>")
+            tag = ("K3" if K3_KERNEL in e.key else
+                   None if CHOL_KERNEL not in e.key else
+                   "K1" if ", true>" in e.key else "K2")
+            if tag:
+                ours[tag][0] += e.self_device_time_total / 1e3
+                ours[tag][1] += e.count
             continue
         if span and e.device_type == DeviceType.CPU:
             spans[e.key] = {"count": e.count,
@@ -660,21 +834,33 @@ def profile_phase(runner, st, p0, state):
     top = sorted((e for e in events if e.device_type == DeviceType.CUDA
                   and not e.key.startswith(("alm.", "rollout."))),
                  key=lambda e: -e.self_device_time_total)[:8]
-    out = {"step": 0, "untraced_step_ms": untraced_ms,
+    out = {"path": path, "step": 0, "untraced_step_ms": untraced_ms,
            "traced_step_ms": traced_ms, "device_kernel_ms": kernel_us / 1e3,
            "device_busy_share": kernel_us / 1e3 / untraced_ms,
-           "kernels_launched": kernels, "spans": spans,
+           "kernels_launched": kernels,
+           "port_kernels": {k: {"device_ms": v[0], "launches": v[1]}
+                            for k, v in ours.items()},
+           "spans": spans,
            "top_kernels": [{"name": e.key[:100], "count": e.count,
                             "device_ms": e.self_device_time_total / 1e3}
                            for e in top],
            "analysis_s": time.time() - t0}
     print("profile " + json.dumps(out), flush=True)
     check(kernel_us > 0, "the traced step shows no device time")
+    return out
 
 
 def cross_check_phase(T, runner, st, starts, goals):
-    """Card f32 vs port on the CPU in f64: the one-period-ahead planned
-    state of the cold solve for the first CROSS_LANES scenarios."""
+    """The cold solve of the first CROSS_LANES scenarios by the port on the
+    CPU in float64 against (a) the card's float32 fused solve and (b) the
+    same float64 runner moved to the card, whose compact-arrow solve runs
+    K1 and K2 in float64 (launches counted from 0): the one-period-ahead
+    planned state, each within bench.py's 2 cm parity bound.  Beside them,
+    the CPU solve's own sensitivity to rounding: the same solve from x0
+    perturbed by F64_PERTURB (relative).  The cold solve is not converged
+    and its Newton systems are nearly singular, so that sensitivity is
+    millimetres, not roundoff: no tighter bound holds for a second
+    implementation that sums in another order."""
     import torch
     t0 = time.time()
     cpu_runner = T.BatchedP2PRunner(
@@ -684,15 +870,50 @@ def cross_check_phase(T, runner, st, starts, goals):
                                       goals[:CROSS_LANES])
     st_cpu = cpu_runner.init_solver_state(x0, p0)
     want = planned_state(cpu_runner, st_cpu.x).numpy()
-    got = planned_state(runner, st.x[:CROSS_LANES]).double().cpu().numpy()
-    err = np.max(np.abs(got - want), axis=1)
-    out = {"lanes": CROSS_LANES, "max_err_m": float(err.max()),
-           "p90_err_m": float(np.percentile(err, 90)),
+
+    def err_m(x, runner_):
+        got = planned_state(runner_, x).double().cpu().numpy()
+        return np.max(np.abs(got - want), axis=1)
+
+    err = err_m(st.x[:CROSS_LANES], runner)
+    gen = torch.Generator().manual_seed(0)
+    noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
+    st_self = cpu_runner.init_solver_state(x0 * (1 + F64_PERTURB * noise), p0)
+    err_self = err_m(st_self.x, cpu_runner)
+    # the float64 runner on the card shares the CPU runner's host work
+    card64 = cpu_runner.to(runner.device)
+    xc, pc, _ = card64.make_batch(starts[:CROSS_LANES], goals[:CROSS_LANES])
+    zero_launch_counts()
+    st64 = card64.init_solver_state(xc, pc)
+    torch.cuda.synchronize()
+    launches64 = launch_counts()
+    err64 = err_m(st64.x, card64)
+
+    def stats(e):
+        return {"max_err_m": float(e.max()),
+                "p50_err_m": float(np.median(e)),
+                "p90_err_m": float(np.percentile(e, 90))}
+    out = {"lanes": CROSS_LANES, **stats(err),
            "cpu_feas_max": float(st_cpu.feas.max()),
+           "card_f64": {"structure": card64.structure,
+                        "dtype": str(st64.x.dtype), **stats(err64),
+                        "feas_max": float(st64.feas.max()),
+                        "launches": launches64},
+           "cpu_f64_perturbed": {"relative": F64_PERTURB, **stats(err_self),
+                                 "feas_max": float(st_self.feas.max())},
            "seconds": time.time() - t0}
     print("cross_check " + json.dumps(out), flush=True)
     check(out["max_err_m"] < PARITY_GATE_M,
           f"card vs CPU planned states differ by {out['max_err_m']} m")
+    check(card64.structure == "compact-arrow" and st64.x.is_cuda
+          and st64.x.dtype == torch.float64,
+          f"the float64 card runner ran {card64.structure} on "
+          f"{st64.x.device} in {st64.x.dtype}")
+    check(launches64["psd_solve"] > 0 and launches64["psd_solve_multi"] > 0
+          and launches64["fused_inner"] == 0,
+          f"float64 card cold solve launched {launches64}")
+    check(bool(np.isfinite(err64).all()) and float(err64.max()) < PARITY_GATE_M,
+          f"float64 card vs CPU planned states differ by {err64.max()} m")
 
 
 def main():
@@ -712,24 +933,29 @@ def main():
     for name in libs:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
-            print(f"ptxas[{name}]: " + " | ".join(
-                l.strip() for l in log.read_text().splitlines()
-                if "registers" in l or "smem" in l or "spill" in l),
-                  flush=True)
+            for entry in ptxas_report(log.read_text()):
+                print(f"ptxas[{name}] " + json.dumps(entry), flush=True)
 
     device = torch.device("cuda")
-    records = kernel_phase(device)
+    if "--kernels-only" in sys.argv[1:]:
+        kernel_phase(device)
+        return
+    kernel_phase(device, timed=False)
     runner, consts, starts, goals, x0, p0, state, setup_s = setup_phase(
         T, device)
-    records.append(k3_kernel_phase(runner, consts, x0, p0))
+    k3_entry, k3_timers = k3_kernel_phase(runner, consts, x0, p0)
     st, launches = main_path_phase(runner, consts, starts, goals, x0, p0,
                                    state, setup_s)
-    profile_phase(runner, st, p0, state)
+    profile_phase(runner, st, p0, state, "compact-arrow-fused")
     launches.update({k: v for k, v in compact_arrow_phase(
         runner, st, p0, state).items() if k != "fused_inner"})
+    profile_phase(runner, st, p0, state, "compact-arrow")
+    cross_check_phase(T, runner, st, starts, goals)
+    # phase 10: device times, after every timed rollout
+    records = kernel_phase(device) + [k3_entry]
+    k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
-    cross_check_phase(T, runner, st, starts, goals)
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ a shared library with a plain C interface and loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout, into
 ``build/omg_tools_torch/`` at the repository root (listed in
 ``.gitignore``); the library's file name carries a hash of its source,
-the headers of ``csrc/`` and the flags, so an edited source or header is
-rebuilt and an unchanged one is reused.
+the other files of ``csrc/`` and the flags, so an edited source or an
+included file is rebuilt and an unchanged one is reused.
 Nothing here runs at import time.
 """
 
@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "chol_solve": {
-        "omg_psd_solve_f32": (_P, _P, _P, _I, _I, _P),
-        "omg_psd_solve_multi_f32": (_P, _P, _P, _I, _I, _I, _P),
+        "omg_chol_solve_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "chol_solve_f64": {
+        "omg_chol_solve_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
     "fused_alm": {
         "omg_fused_inner_f32": (_P,) * 10 + (_I, _P, _P, _P, _I, _I, _I,
@@ -54,11 +56,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    """The library's path, named by a hash of its source, every header of
-    ``csrc/`` (a source may include any of them) and the flags."""
+    """The library's path, named by a hash of its source, every other file
+    of ``csrc/`` (a source may include any of them) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
+    for other in sorted(CSRC.glob("*.cu*")):
+        h.update(other.name.encode() + other.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,10 +4,10 @@
 ``_chol_solve_multi_kernel``).
 
 A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
-tensors it launches the hand-written Hopper kernel of
-``csrc/chol_solve.cu`` (one warp per system, the factor kept in shared
-memory) and raises on what the kernel does not take.  Each wrapper counts
-its kernel launches in a plain integer attribute, ``launches``.
+tensors (float32 or float64) it launches the hand-written Hopper kernel of
+``csrc/chol_solve.cu`` in the variant that ``variant`` picks, and raises on
+what the kernel does not take.  Each wrapper counts its kernel launches in
+a plain integer attribute, ``launches``.
 
 A system that is not positive definite gives non-finite output -- rsqrt of
 a non-positive pivot -- in both versions, never an error: the ALM's per-lane
@@ -21,7 +21,18 @@ import torch
 from . import _build
 
 __all__ = ["psd_solve", "psd_solve_multi", "psd_solve_plain",
-           "psd_solve_multi_plain", "chol_solve_plain"]
+           "psd_solve_multi_plain", "chol_solve_plain", "variant"]
+
+# the kernel's variants and the code its C entry point takes for each: the
+# register classes by the rows a warp holds (n, plus the augmented row g'
+# when r = 1; float64 has the 64-row class only), then one system a block
+# for anything larger
+VARIANTS = {"reg32": 32, "reg48": 48, "reg64": 64, "block": 0}
+_CLASSES = {torch.float32: ("reg32", "reg48", "reg64"),
+            torch.float64: ("reg64",)}
+# the library (``csrc/<name>.cu``) and C entry point of each element type
+_ENTRY = {torch.float32: ("chol_solve", "omg_chol_solve_f32"),
+          torch.float64: ("chol_solve_f64", "omg_chol_solve_f64")}
 
 
 def chol_solve_plain(H, G):
@@ -59,22 +70,45 @@ def psd_solve_multi_plain(D, G):
     return X.reshape(G.shape)
 
 
+def variant(n, r, dtype=torch.float32):
+    """The kernel variant that solves (n, n) systems with r right-hand
+    sides: the smallest register class of ``dtype`` that holds n rows
+    (n + 1 for r = 1, whose right-hand side rides along as an augmented
+    row), else ``block``.  Whether a system fits a block's shared memory
+    is the C entry point's to check: it refuses one that does not."""
+    if dtype not in _ENTRY:
+        raise TypeError(f"the kernels take float32 or float64, not {dtype}")
+    rows = n + (r == 1)
+    for name in _CLASSES[dtype]:
+        if rows <= VARIANTS[name]:
+            return name
+    return "block"
+
+
 def _check(H, R):
     for name, t in (("H", H), ("rhs", R)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in _ENTRY:
+            raise TypeError(f"{name} must be float32 or float64, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if H.dtype != R.dtype:
+        raise TypeError(f"H is {H.dtype}, rhs {R.dtype}")
     if H.device != R.device:
         raise ValueError("H and rhs lie on different devices")
 
 
-def _launch(fn, *args):
-    """Launch through the C entry point; it refuses (cudaErrorInvalidValue)
-    a system too large for its shared-memory layout."""
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(H, R, out, N, n, r):
+    """Launch through the C entry point in the variant ``variant`` picks;
+    it refuses (cudaErrorInvalidValue, nothing launched) a variant that
+    does not fit, such as a system too large for a block's shared memory."""
+    source, entry = _ENTRY[H.dtype]
+    fn = getattr(_build.load(source), entry)
+    err = fn(H.data_ptr(), R.data_ptr(), out.data_ptr(), N, n, r,
+             VARIANTS[variant(n, r, H.dtype)],
+             torch.cuda.current_stream(H.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed (cudaError {err})")
 
@@ -93,9 +127,7 @@ def psd_solve(H, g):
     N = g.numel() // n if n else 0
     if N == 0:
         return out
-    lib = _build.load("chol_solve")
-    _launch(lib.omg_psd_solve_f32, H.data_ptr(), g.data_ptr(),
-            out.data_ptr(), N, n)
+    _launch(H, g, out, N, n, 1)
     psd_solve.launches += 1
     return out
 
@@ -115,9 +147,7 @@ def psd_solve_multi(D, G):
     N = G.numel() // (n * r) if n * r else 0
     if N == 0:
         return out
-    lib = _build.load("chol_solve")
-    _launch(lib.omg_psd_solve_multi_f32, D.data_ptr(), G.data_ptr(),
-            out.data_ptr(), N, n, r)
+    _launch(D, G, out, N, n, r)
     psd_solve_multi.launches += 1
     return out
 

@@ -19,6 +19,7 @@ structures are not ported yet.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import NamedTuple, Optional
 
@@ -204,6 +205,20 @@ class BatchedP2PRunner:
             else ALMOptions()
         self.solver = self.make_solver(self._alm_options)
         self._consts = None
+
+    def to(self, device):
+        """This runner on another device, sharing everything the host
+        computed (transcription, host AD tensors, compaction, fused plan,
+        solver): only the device tensors are made anew."""
+        other = copy.copy(self)
+        other.device = resolve_device(device)
+        dev = dict(dtype=self.dtype, device=other.device)
+        other.shift_M = self.shift_M.to(**dev)
+        other.lb = self.lb.to(**dev)
+        other.ub = self.ub.to(**dev)
+        other.model = make_rollout_model(other)
+        other._consts = None
+        return other
 
     @property
     def structure(self):

@@ -2,10 +2,14 @@
 
 The plain PyTorch versions are held to the JAX package's lane-batched
 Pallas kernels run in interpret mode, float32, at the shapes of
-tests/test_pallas_kernels.py plus the main-path tail/head shapes, with the
-same tolerance: max |diff| <= 5e-5 * max |want|.  The CUDA kernels are held
+tests/test_pallas_kernels.py plus the main-path tail/head shapes and the
+edges of the kernel's size classes (n = 32, 33, 64; r = 32, 33), with the
+same tolerance: max |diff| <= 5e-5 * max |want|; in float64 to
+``numpy.linalg.solve``.  The CUDA kernels (float32 and float64) are held
 to the plain versions on the card (tests marked ``gpu``, skipped without
-one).  The JAX package is imported by a fixture, so that the ``gpu`` tests
+one): every size class and its edges, ragged batches, element-aligned
+slices, a non-SPD system among SPD ones, and what the C entry point must
+refuse.  The JAX package is imported by a fixture, so that the ``gpu`` tests
 also run where JAX is not installed:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest -q
@@ -20,10 +24,17 @@ from omg_tools_torch.ops import psd_kernels as pk
 pytestmark = pytest.mark.fast
 
 TOL = 5e-5
+TOL_F64 = 1e-10
 K1_SHAPES = [(3, 8), (5, 23), (2, 151), (130, 17)]
 # the JAX test's multi-RHS shapes, plus the main path's head (n=26, r=1)
 # and tail-block (n=33, r=h+1=27) systems
 K2_SHAPES = [(3, 8, 4), (5, 23, 11), (130, 17, 9), (6, 26, 1), (10, 33, 27)]
+# the edges of the kernel's register classes (rows n, plus one for r = 1)
+EDGE_K1 = [(3, 31), (3, 32), (2, 63), (2, 64)]
+EDGE_K2 = [(3, 32, 32), (3, 33, 33), (2, 64, 2), (2, 65, 3)]
+# every class and its edges, for the kernels on the card
+CARD_N = [1, 8, 26, 31, 32, 33, 64, 65, 151]
+CARD_R = [1, 2, 27, 32, 33]
 
 
 @pytest.fixture(scope="module")
@@ -79,6 +90,53 @@ def test_non_spd_gives_non_finite(jk, multi):
     assert np.isfinite(got[1]).all()
     np.testing.assert_allclose(got[1], want[1],
                                atol=TOL * np.max(np.abs(want[1])))
+
+
+@pytest.mark.parametrize("B,n", EDGE_K1)
+def test_psd_solve_plain_matches_jax_interpret_at_class_edges(jk, B, n):
+    H, G = _spd(B, n, 1, seed=6)
+    want = np.asarray(jk.batched_psd_solve(H, G[..., 0], interpret=True))
+    got = pk.psd_solve(torch.as_tensor(H), torch.as_tensor(G[..., 0]))
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=TOL * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("B,n,r", EDGE_K2)
+def test_psd_solve_multi_plain_matches_jax_interpret_at_class_edges(
+        jk, B, n, r):
+    H, G = _spd(B, n, r, seed=7)
+    want = np.asarray(jk.batched_psd_solve_multi(H, G, interpret=True))
+    got = pk.psd_solve_multi(torch.as_tensor(H), torch.as_tensor(G))
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=TOL * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("B,n,r", [(4, 1, 1), (5, 26, 1), (3, 33, 27),
+                                   (2, 65, 33), (2, 151, 2)])
+def test_plain_f64_matches_numpy_solve(B, n, r):
+    H, G = _spd(B, n, r, seed=8, dtype=np.float64)
+    got = pk.psd_solve_multi(torch.as_tensor(H), torch.as_tensor(G))
+    want = np.linalg.solve(H, G)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=TOL_F64 * np.max(np.abs(want)))
+
+
+def test_variant_picks_the_size_class():
+    """The register class that holds n rows (n + 1 when r = 1: the
+    right-hand side rides along as a row), else the block variant;
+    float64 has the 64-row class only; other types are refused."""
+    f32, f64 = torch.float32, torch.float64
+    assert pk.variant(26, 1, f32) == "reg32"        # K1, main path
+    assert pk.variant(33, 27, f32) == "reg48"       # K2, main path
+    assert pk.variant(151, 1, f32) == "block"       # dense / generic modes
+    assert [pk.variant(n, 1, f32) for n in (31, 32, 47, 48, 63, 64)] == [
+        "reg32", "reg48", "reg48", "reg64", "reg64", "block"]
+    assert [pk.variant(n, 2, f32) for n in (32, 33, 48, 49, 64, 65)] == [
+        "reg32", "reg48", "reg48", "reg64", "reg64", "block"]
+    assert pk.variant(26, 1, f64) == pk.variant(33, 27, f64) == "reg64"
+    assert pk.variant(64, 1, f64) == "block"
+    with pytest.raises(TypeError):
+        pk.variant(8, 1, torch.float16)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -146,7 +204,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     Hd = torch.as_tensor(H, device=cuda_device)
     Gd = torch.as_tensor(G, device=cuda_device)
     with pytest.raises(TypeError):
-        pk.psd_solve_multi(Hd.double(), Gd.double())
+        pk.psd_solve_multi(Hd.half(), Gd.half())
+    with pytest.raises(TypeError):
+        pk.psd_solve_multi(Hd.double(), Gd)
     with pytest.raises(ValueError):
         pk.psd_solve_multi(Hd, Gd.transpose(-1, -2).contiguous()
                            .transpose(-1, -2))
@@ -159,3 +219,139 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError"):
         pk.psd_solve(big, torch.ones((1, 300), device=cuda_device))
     assert pk.psd_solve.launches == before
+
+
+def _card(B, n, r, seed, device, dtype=np.float32):
+    H, G = _spd(B, n, r, seed, dtype=dtype)
+    return (torch.as_tensor(H, device=device),
+            torch.as_tensor(G, device=device))
+
+
+def _solve(H, G):
+    """The kernel through its wrapper (K1 for r = 1) and the plain version
+    on the same card tensors; asserts one launch."""
+    if G.shape[-1] == 1:
+        g = G[..., 0].contiguous()
+        before = pk.psd_solve.launches
+        got, want = pk.psd_solve(H, g), pk.psd_solve_plain(H, g)
+        assert pk.psd_solve.launches == before + 1
+    else:
+        before = pk.psd_solve_multi.launches
+        got, want = pk.psd_solve_multi(H, G), pk.psd_solve_multi_plain(H, G)
+        assert pk.psd_solve_multi.launches == before + 1
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_close(got, want, tol, what):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, (what, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("multi", [False, True])
+def test_cuda_kernel_f64_matches_plain(cuda_device, multi):
+    shapes = K2_SHAPES if multi else [(B, n, 1) for (B, n) in K1_SHAPES]
+    for (B, n, r) in shapes:
+        H, G = _card(B, n, r, 4, cuda_device, np.float64)
+        got, want = _solve(H, G)
+        assert got.dtype == torch.float64
+        _assert_close(got, want, TOL_F64, (B, n, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", CARD_R)
+def test_cuda_kernel_every_size_class(cuda_device, r, dtype):
+    tol = TOL if dtype == np.float32 else TOL_F64
+    for n in CARD_N:
+        H, G = _card(5, n, r, n + r, cuda_device, dtype)
+        got, want = _solve(H, G)
+        _assert_close(got, want, tol, (n, r, pk.variant(n, r, H.dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 5, 4097, 20481])
+def test_cuda_kernel_ragged_batches(cuda_device, N):
+    """Batches that are no multiple of the warps a block, or of the warps
+    resident on the card (each then walks a ragged number of systems)."""
+    for (n, r) in ((26, 1), (33, 27)):
+        H, G = _card(N, n, r, N, cuda_device)
+        got, want = _solve(H, G)
+        _assert_close(got, want, TOL, (N, n, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_kernel_takes_element_aligned_slices(cuda_device, dtype):
+    """H[1:] and G[1:] of contiguous batches: data pointers aligned to
+    one element only, not to 16 bytes."""
+    tol = TOL if dtype == np.float32 else TOL_F64
+    for (n, r) in ((25, 1), (33, 27), (9, 3)):   # odd n: unaligned slices
+        H, G = _card(66, n, r, n, cuda_device, dtype)
+        Hs, Gs = H[1:], G[1:]
+        assert Hs.is_contiguous() and Hs.data_ptr() % 16 != 0
+        got, want = _solve(Hs, Gs)
+        _assert_close(got, want, tol, (n, r))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_non_spd_among_spd(cuda_device):
+    """One non-SPD system among 64 SPD ones of the same launch gives a
+    non-finite solution; every other stays finite and right."""
+    for (n, r) in ((26, 1), (33, 27), (70, 2)):
+        H, G = _spd(64, n, r, seed=9)
+        H[37, 5, 5] = -50.0
+        got, want = _solve(torch.as_tensor(H, device=cuda_device),
+                           torch.as_tensor(G, device=cuda_device))
+        assert not bool(torch.isfinite(got[37]).all()), (n, r)
+        keep = torch.arange(64, device=cuda_device) != 37
+        assert bool(torch.isfinite(got[keep]).all()), (n, r)
+        _assert_close(got[keep], want[keep], TOL, (n, r))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_runs_the_variant_it_picks(cuda_device):
+    """The launched kernel is the instance of the class ``variant`` names."""
+    from torch.profiler import ProfilerActivity, profile
+    cases = [((26, 1), np.float32, "chol_warp_kernel<float, 32, true>"),
+             ((33, 27), np.float32, "chol_warp_kernel<float, 48, false>"),
+             ((50, 2), np.float32, "chol_warp_kernel<float, 64, false>"),
+             ((151, 1), np.float32, "chol_block_kernel<float, true>"),
+             ((33, 27), np.float64, "chol_warp_kernel<double, 64, false>"),
+             ((70, 3), np.float64, "chol_block_kernel<double, false>")]
+    for (n, r), dtype, want in cases:
+        H, G = _card(4, n, r, 10, cuda_device, dtype)
+        _solve(H, G)                       # built and warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                _solve(H, G)
+        names = {e.key for e in prof.key_averages() if "chol" in e.key}
+        assert len(names) == 1 and want in names.pop(), (n, r, dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_entry_point_refuses_what_does_not_fit(cuda_device):
+    """A variant too small for n, an unknown variant, a class float64 does
+    not have, an empty batch and a system too large for a block's shared
+    memory: cudaErrorInvalidValue (1), nothing launched, the output left
+    as it was."""
+    from omg_tools_torch.ops import _build
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = [(np.float32, 33, 27, 5, 32), (np.float32, 49, 2, 5, 48),
+             (np.float32, 32, 1, 5, 32), (np.float32, 8, 4, 5, 7),
+             (np.float64, 8, 4, 5, 32), (np.float32, 8, 4, 0, 32),
+             (np.float32, 300, 1, 1, 0)]
+    for dtype, n, r, N, var in cases:
+        H, G = _card(max(N, 1), n, r, 11, cuda_device, dtype)
+        X = torch.full_like(G, 7.0)
+        fn = (_build.load("chol_solve").omg_chol_solve_f32
+              if dtype == np.float32
+              else _build.load("chol_solve_f64").omg_chol_solve_f64)
+        err = fn(H.data_ptr(), G.data_ptr(), X.data_ptr(), N, n, r, var,
+                 stream)
+        torch.cuda.synchronize()
+        assert err == 1, (dtype, n, r, N, var, err)
+        assert bool((X == 7.0).all()), (dtype, n, r, N, var)

@@ -209,6 +209,19 @@ def test_init_solver_state(pair, scenarios, jax_run):
     np.testing.assert_array_equal(st.n_iter.numpy(), want["n_iter"])
 
 
+def test_runner_to_shares_the_host_work(pair, scenarios, jax_run):
+    """``runner.to(device)`` re-targets a built runner without redoing the
+    host AD: the copy shares its compaction and solver, and its cold solve
+    is the JAX package's."""
+    _, _, _, tr = pair
+    other = tr.to("cpu")
+    assert other is not tr and other.compact is tr.compact
+    assert other.solver is tr.solver and other.structure == tr.structure
+    x0, p0, _ = other.make_batch(*scenarios)
+    st = other.init_solver_state(x0, p0)
+    np.testing.assert_allclose(st.x.numpy(), jax_run["st0"]["x"], atol=1e-8)
+
+
 def test_rollout(pair, scenarios, jax_run):
     _, _, _, tr = pair
     x0, p0, state = tr.make_batch(*scenarios)
