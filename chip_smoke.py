@@ -18,8 +18,13 @@ Phases, in order; any failure raises and exits non-zero:
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
    horizon at 10 Hz) and its float32 runner, which must pick the
-   ``compact-arrow-fused`` structure; B = 4096 scenarios;
-5. kernel K3: the fused inner loop on those scenarios' cold-solve inputs
+   ``compact-arrow-fused`` structure; B = 4096 scenarios; the host
+   tensors must not come from the cache: the script points
+   ``OMG_CACHE_DIR`` at an empty directory of its own, removed at its end;
+5. cache: the same setup again, its host tensors now from the cache (a
+   hit is required); the second runner's device tensors must equal the
+   first's bit for bit; ``setup_s`` cold and cached;
+6. kernel K3: the fused inner loop on those scenarios' cold-solve inputs
    (phase 0, zero multipliers, rho_init) at the main shape (B = 4096,
    8 inner iterations) and the rescue shape (128 lanes, 5): with a
    well-conditioned ridge, the kernel against its plain float32 version
@@ -31,29 +36,42 @@ Phases, in order; any failure raises and exits non-zero:
    phase of an iteration in the blocks' clock cycles (a launch with the
    clock profile on, whose outputs must equal the unprofiled launch's bit
    for bit);
-6. main path: the B = 4096, 20-step batched rollout in float32 on the
+7. main path: the B = 4096, 20-step batched rollout in float32 on the
    fused structure, at the bench settings (budgets 3x8/1x7, 2 outer
    rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
    counters are zeroed before and read after: K3 must have run, K1 and K2
    not;
-7. profile: one fused MPC step traced with torch.profiler -- the device's
+8. parity: bench.py's gate (bench.py:404-446) on that runner: the
+   open-loop control parity of scenario 0 along the reference rollout of
+   the port's scipy solver (``tools/parity.py``, 12 steps, computed in
+   this run, its wall time printed), through K3;
+9. profile: one fused MPC step traced with torch.profiler -- the device's
    kernel time against the step's wall time, the device time of K1, K2 and
    K3, and the host time of each span;
-8. compact-arrow path: the same runner with its fused plan taken off
-   (``runner.fused_plan = None``, the one selector of the path), a 3-step
-   rollout of the same batch; K1 and K2 must have run; then one of its
-   steps traced as in 7;
-9. cross-check: the one-period-ahead planned state of the cold solve of
-   64 of those scenarios by the port on the CPU in float64, against the
-   card's float32 fused solve and against the same float64 runner on the
-   card (``runner.to``: compact-arrow, K1 and K2 in float64, launches
-   counted), each within the 2 cm parity bound of ``bench.py``, beside the
-   CPU solve's own sensitivity to a 1e-15 perturbation of its start;
-10. times: the device time of K1 and K2 at every shape of 3 (``device_ms``:
+10. compact-arrow path: the same runner with its fused plan taken off
+    (``runner.fused_plan = None``, the one selector of the path), a 3-step
+    rollout of the same batch; K1 and K2 must have run; then one of its
+    steps traced as in 9;
+11. cross-check: the one-period-ahead planned state of the cold solve of
+    64 of those scenarios by the port on the CPU in float64, against the
+    card's float32 fused solve and against the same float64 runner on the
+    card (``runner.to``: compact-arrow, K1 and K2 in float64, launches
+    counted), each within the 2 cm parity bound of ``bench.py``, beside the
+    CPU solve's own sensitivity to a 1e-15 perturbation of its start;
+12. closed loop: the Quick Start (``Point2point`` + ``Simulator``) on the
+    bench scene in float64 on the card, 15 updates in the dense quadratic
+    mode (tests/test_p2p.py's progress and clearance criteria), and three
+    in the default generic mode on a cut budget, every solver call's
+    iterate within 1e-8 of the quadratic mode's on that budget; K1
+    (float64, one 151-row system a launch) must run in every update; then
+    ``examples_torch/p2p_holonomic.py`` in smoke mode in a process of its
+    own;
+13. times: the device time of K1 and K2 at every shape of 3 (``device_ms``:
     the profiler's self CUDA time of the kernel's own name over 20
     launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
-    kernels on the same inputs, and K3's at both shapes of 5; taken last,
-    so that no profiler session but 7's precedes the timed rollouts.
+    kernels on the same inputs, K3's at both shapes of 6, and K1's in
+    float64 at the closed loop's shape (1 x 151); taken last, so that no
+    profiler session but 9's precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
@@ -66,8 +84,10 @@ is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,10 +122,32 @@ F64_PERTURB = 1e-15       # relative perturbation of x0: the cold solve's
                           # own sensitivity to rounding, on the CPU
 FEAS_P99_GATE = 1e-3      # bench.py:446
 PARITY_GATE_M = 0.02      # bench.py:443
+PARITY_P90_GATE_M = 5e-3  # bench.py:444
+REF_FEAS_GATE = 1e-3      # bench.py:445
+# parity depth: bench.py runs min(N_STEPS, 20) steps; the reference's 20
+# steps took 378 s on the card's host, so the depth is cut to 12
+# (tests/test_parity.py's), which still covers the knot passage at step 10
+PARITY_STEPS = 12
+CL_UPDATES = 15           # closed loop, quadratic mode (tests/test_p2p.py)
+# the generic mode, three updates on a cut budget: on the card's host an
+# iteration of it (J, g and the objective's Hessian by torch.func every
+# iteration) costs ~0.85 s, and it runs its full 320 iterations every
+# update on this scene (~265 s an update)
+CL_GENERIC_UPDATES = 3
+CL_GENERIC_BUDGET = {"outer_iter": 1, "inner_iter": 8}
+# its iterates against the quadratic mode's on the same budget: the same
+# Gauss-Newton steps, J by AD against J = A + 2 Q x, equal to rounding
+# until a solve starts amplifying it at its 12th iteration
+# (tests/test_torch_closed_loop.py); a call here runs 8
+CL_GENERIC_TOL = 1e-8
+EXAMPLE_TIMEOUT_S = 400
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
+# cores and the f64 rate through them (IEEE float64; 34e12 outside them):
+# the card's peak for each type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
 
 # (name, entry point, TPU kernel it replaces, shapes); a shape is (tag,
 # (N systems, n, r)): the compact-arrow path's (main), its rescue batch's
@@ -125,6 +167,11 @@ K3_KERNEL = "fused_alm_kernel"
 K3_NAME = "K3 fused ALM inner loop (fused_inner)"
 K3_SOURCE = "omg_tools_torch/csrc/fused_alm.cu"
 K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
+# K1 in float64 at the closed loop's shape: Problem.solve's Newton system
+# of the bench scene, one system a call (n_x = 4*13 + 3*3*11)
+K1_F64_NAME = "K1 chol_solve r=1 (psd_solve) float64, Problem.solve"
+K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
+K1_F64_SHAPE = (1, 151, 1)
 
 
 def check(cond, msg):
@@ -154,18 +201,23 @@ def device_ms(fn, name=None, reps=DEVICE_REPS, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, names = 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count and (
-                name is None or name in e.key):
-            us += e.self_device_time_total / e.count \
-                * max(1, round(e.count / reps))
-            names[e.key[:90]] = e.count
+    # the profiler now and then records a session's launches but none of
+    # its kernels: such a session is taken again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, names = 0.0, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count and (
+                    name is None or name in e.key):
+                us += e.self_device_time_total / e.count \
+                    * max(1, round(e.count / reps))
+                names[e.key[:90]] = e.count
+        if us > 0:
+            break
     check(us > 0, f"no device time recorded for {name or 'the call'}: "
           f"{[e.key[:60] for e in prof.key_averages()]}")
     return us / 1e3, names
@@ -354,8 +406,11 @@ def kernel_phase(device, timed=True):
     return records
 
 
-def kernel_phase_f64(name, entry, N, n, r, device, timed):
-    """The float64 instance against the plain float64 version."""
+def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main"):
+    """The float64 instance against the plain float64 version; with
+    ``timed``, its device time, one call's time, the library's device time
+    and the bound (f64 operations over the card's f64 peak, that of its
+    tensor cores).  Returns the kernel_check line."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
     H, G = spd_inputs(N, n, r, seed=N + n + r, device=device,
@@ -368,11 +423,46 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed):
     check(bool(torch.isfinite(got).all()), f"{name} f64: non-finite output")
     check(err <= TOL_REL_F64 * scale,
           f"{name} f64: max |kernel - plain| {err} > {TOL_REL_F64} * {scale}")
-    ms = device_ms(lambda: kern(*args), CHOL_KERNEL)[0] if timed else None
-    line = {"name": name, "shape": "main", "N": N, "n": n, "r": r,
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(H)
+        return torch.cholesky_solve(G, L)
+    nbytes = 8 * (N * n * (n + 1) // 2 + 2 * N * n * r)
+    flops = N * (n ** 3 / 3.0 + 2.0 * n * n * r)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F64_FLOPS * 1e3
+    line = {"name": name, "shape": shape, "N": N, "n": n, "r": r,
             "dtype": "float64", "variant": pk.variant(n, r, torch.float64),
-            "max_abs_err": err, "scale": scale, "ms": ms}
+            "max_abs_err": err, "scale": scale,
+            "library_err": float((library().reshape(got.shape)
+                                  - want).abs().max()),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+    if timed:
+        line["ms"] = device_ms(lambda: kern(*args), CHOL_KERNEL)[0]
+        line["call_ms"] = time_ms(lambda: kern(*args))
+        line["library_ms"] = device_ms(library)[0]
+        line["plain_ms"] = time_ms(lambda: plain(*args), reps=3, warmup=1)
     print("kernel_check " + json.dumps(line), flush=True)
+    return line
+
+
+def k1_f64_record(device, launches, per_update):
+    """The kernels-line record of K1 in float64 at Problem.solve's shape
+    (phase 13: device times), with the closed loop's launches (in all, and
+    in each quadratic-mode update)."""
+    N, n, r = K1_F64_SHAPE
+    line = kernel_phase_f64(K1_F64_NAME, "psd_solve", N, n, r, device,
+                            timed=True, shape="problem_solve")
+    return {"name": K1_F64_NAME, "route": "cuda", "source": K1_F64_SOURCE,
+            "replaces": KERNELS[0][2], "launches": launches,
+            "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+            "call_ms": line["call_ms"], "variant": line["variant"],
+            "shape": [N, n, r], "dtype": "float64",
+            "launches_per_update": per_update}
 
 
 def build_problem(T):
@@ -427,21 +517,215 @@ def zero_launch_counts():
 
 
 def setup_phase(T, device, B=BATCH):
-    """The bench scene's float32 runner on ``device`` and B scenarios."""
+    """The bench scene's float32 runner on ``device`` and B scenarios;
+    ``setup_s`` is the problem's and the runner's build, the batch and the
+    device tensors, and ``cache_hit`` says whether the host tensors came
+    from the cache (``utils.cache``)."""
     import torch
+    from omg_tools_torch.utils import cache
     t0 = time.time()
+    problem = build_problem(T)
+    cache_hit = cache.load_tensors(problem.transcription.fingerprint,
+                                   "affine_v") is not None
     runner = T.BatchedP2PRunner(
-        build_problem(T), dtype=torch.float32, device=device,
+        problem, dtype=torch.float32, device=device,
         alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
     check(runner.structure == "compact-arrow-fused",
           f"structure {runner.structure}")
     starts, goals = scenarios(B)
     x0, p0, state = runner.make_batch(starts, goals)
     consts = runner.consts()
+    torch.cuda.synchronize()
     setup_s = time.time() - t0
-    print(f"setup: {setup_s:.3f} s, structure {runner.structure}",
-          flush=True)
-    return runner, consts, starts, goals, x0, p0, state, setup_s
+    print(f"setup: {setup_s:.3f} s, structure {runner.structure}, "
+          f"cache_hit {cache_hit}", flush=True)
+    return runner, consts, starts, goals, x0, p0, state, setup_s, cache_hit
+
+
+def _tensors(tree):
+    import torch
+    leaves = torch.utils._pytree.tree_flatten(tree)[0]
+    return [a for a in leaves if isinstance(a, torch.Tensor)]
+
+
+def cache_phase(T, device, consts, setup_s):
+    """The same setup again: the host tensors must now come from the cache
+    that the first build filled, and the second runner's device tensors
+    must equal the first's bit for bit."""
+    runner2, consts2, *_, setup2_s, hit = setup_phase(T, device)
+    a, b = _tensors(consts), _tensors(consts2)
+    same = len(a) == len(b) and all(
+        u.dtype == v.dtype and u.shape == v.shape and bool((u == v).all())
+        for u, v in zip(a, b))
+    out = {"setup_s_cold": setup_s, "setup_s_cached": setup2_s,
+           "cache_hit": hit, "tensors": len(a), "bit_identical": same}
+    print("cache " + json.dumps(out), flush=True)
+    check(hit, "the second build did not load its host tensors from the "
+          "cache")
+    check(same, "the cached runner's consts differ from the first build's")
+    return out
+
+
+def parity_phase(runner, x0, p0, feas_p99):
+    """bench.py's gate (bench.py:404-446) on the main path's float32 fused
+    runner: open-loop control parity of scenario 0 along the reference
+    rollout of the port's scipy solver (float64 on the host), with the
+    bench budgets, through the runner's own structure (K3)."""
+    from omg_tools_torch.tools.parity import (cached_reference_rollout,
+                                              openloop_parity, reference_key)
+    from omg_tools_torch.utils import cache
+    check(runner.structure == "compact-arrow-fused",
+          f"parity on {runner.structure}")
+    x0n = x0[0].double().cpu().numpy()
+    p0n = p0[0].double().cpu().numpy()
+    # reference_s is the reference's computation, never a cache load
+    check(cache.load_tensors(reference_key(runner, x0n, p0n, PARITY_STEPS),
+                             "refroll") is None,
+          "the parity reference is already in the cache")
+    t0 = time.time()
+    ref = cached_reference_rollout(runner, x0n, p0n, PARITY_STEPS)
+    ref_s = time.time() - t0
+    zero_launch_counts()
+    t1 = time.time()
+    res = openloop_parity(runner, x0n, p0n, PARITY_STEPS,
+                          outer_iter=OUTER_ITER, budgets=BUDGETS, ref=ref)
+    launches = launch_counts()
+    p90 = float(np.percentile(res["per_step"], 90))
+    out = {"steps": PARITY_STEPS, "parity_max_err": res["openloop_max_err"],
+           "parity_p90_err": p90, "parity_ref_feas_max": res["ref_feas_max"],
+           "per_step": res["per_step"].tolist(), "feas_p99": feas_p99,
+           "reference_s": ref_s, "parity_s": time.time() - t1,
+           "launches": launches}
+    print("parity " + json.dumps(out), flush=True)
+    check(launches["fused_inner"] > 0, "parity: K3 never launched")
+    check(out["parity_max_err"] < PARITY_GATE_M and p90 < PARITY_P90_GATE_M
+          and out["parity_ref_feas_max"] < REF_FEAS_GATE
+          and feas_p99 < FEAS_P99_GATE,
+          f"parity gate (bench.py:442-446) failed: {out}")
+    return out
+
+
+def _recorded(problem):
+    """Record every state the problem's solver returns."""
+    solver, states = problem._solver, []
+
+    def record(*args, **kwargs):
+        states.append(solver(*args, **kwargs))
+        return states[-1]
+    problem._solver = record
+    return states
+
+
+def _closed_loop(device, mode, n_updates, solver_options=None):
+    """``n_updates`` Simulator updates of the bench scene in ``mode``, the
+    counters zeroed before and read after each; returns (problem, line,
+    K1 launches a update, solver states)."""
+    import torch
+    from omg_tools_torch import Simulator
+    from omg_tools_torch.tools.parity import build_p2p_holonomic
+    t0 = time.time()
+    problem = build_p2p_holonomic(
+        solver_options=solver_options,
+        options={"device": device,
+                 "exploit_structure": mode == "quadratic"})
+    init_s = time.time() - t0
+    check(problem._structure == mode, f"structure {problem._structure}")
+    states = _recorded(problem)
+    sim = Simulator(problem)
+    wall_ms, k1, feas, iters = [], [], [], []
+    for _ in range(n_updates):
+        zero_launch_counts()
+        t1 = time.perf_counter()
+        sim.update()
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t1))
+        c = launch_counts()
+        check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
+              f"closed loop ({mode}) launched {c}")
+        k1.append(c["psd_solve"])
+        feas.append(problem.solver_stats["feas"])
+        iters.append(problem.solver_stats["iterations"])
+    solve_ms = [1e3 * t for t in problem.update_times]
+    x = states[-1].x
+    line = {"mode": mode, "updates": n_updates, "budget": solver_options,
+            "init_s": init_s, "solve_ms": solve_ms,
+            "solve_ms_p50": float(np.median(solve_ms)),
+            "solve_ms_max": float(np.max(solve_ms)),
+            "update_wall_ms": wall_ms,
+            "update_wall_ms_p50": float(np.median(wall_ms)),
+            "update_wall_ms_max": float(np.max(wall_ms)),
+            "k1_launches_per_update": k1, "iterations": iters,
+            "solver_calls": len(states), "feas": feas,
+            "dtype": str(x.dtype), "device": str(x.device)}
+    check(all(k > 0 for k in k1), f"{mode}: an update launched no K1")
+    check(x.is_cuda and x.dtype == torch.float64,
+          f"{mode}: solved on {x.device} in {x.dtype}")
+    return problem, line, k1, states
+
+
+def closed_loop_phase(device):
+    """The Quick Start closed loop (Point2point, Simulator) on the bench
+    scene in float64 on the card: (a) the dense quadratic mode
+    (``exploit_structure``), CL_UPDATES Simulator updates, held to
+    tests/test_p2p.py's progress and clearance criteria; (b) the default
+    generic mode, CL_GENERIC_UPDATES updates on the cut budget
+    CL_GENERIC_BUDGET, every solver call's iterate held to the quadratic
+    mode's on the same budget within CL_GENERIC_TOL.  Every update's solve runs K1 (float64, one
+    151-row system a launch).  Returns K1's launches over (a) and (b),
+    and in each update of (a)."""
+    problem, line, per_update, _ = _closed_loop(device, "quadratic",
+                                                CL_UPDATES)
+    vehicle = problem.vehicles[0]
+    S = np.asarray(vehicle.signals["state"], np.float64)
+    d_start = float(np.linalg.norm(S[:, 0] - vehicle.poseT))
+    d_end = float(np.linalg.norm(S[:, -1] - vehicle.poseT))
+    clearance = float(np.min(np.linalg.norm(
+        S - np.array([1.5, 0.5])[:, None], axis=0)))
+    line.update(d_start=d_start, d_end=d_end, circle_clearance=clearance)
+    print("closed_loop " + json.dumps(line), flush=True)
+    check(bool(np.isfinite(S).all()), "quadratic: non-finite states")
+    check(d_end < 0.9 * d_start and d_end < d_start - 0.35,
+          f"no progress: {d_start} -> {d_end}")
+    check(clearance > 0.49, f"circle clearance {clearance}")
+    k1_total = sum(per_update)
+    runs = {}
+    for mode in ("generic", "quadratic"):
+        _, line, k1, states = _closed_loop(device, mode, CL_GENERIC_UPDATES,
+                                           CL_GENERIC_BUDGET)
+        runs[mode] = states
+        k1_total += sum(k1)
+        if mode == "generic":
+            # the updates' wall time over their solver calls' iterations
+            n_it = sum(int(st.n_iter.sum()) for st in states)
+            line["ms_per_iteration"] = sum(line["update_wall_ms"]) / n_it
+            print("closed_loop " + json.dumps(line), flush=True)
+    check(len(runs["generic"]) == len(runs["quadratic"]),
+          "generic and quadratic solver calls differ in number")
+    err = max(float((a.x - b.x).abs().max())
+              for a, b in zip(runs["generic"], runs["quadratic"]))
+    print("closed_loop_generic_vs_quadratic " + json.dumps(
+        {"max_abs_err_x": err, "tol": CL_GENERIC_TOL,
+         "solver_calls": len(runs["generic"])}), flush=True)
+    check(err <= CL_GENERIC_TOL,
+          f"generic vs quadratic iterates differ by {err}")
+    return k1_total, per_update
+
+
+def example_phase():
+    """examples_torch/p2p_holonomic.py in smoke mode (two updates) in a
+    process of its own, on the card."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, os.path.join(HERE, "examples_torch",
+                                      "p2p_holonomic.py")],
+        env={**os.environ, "OMG_SMOKE": "1"}, capture_output=True,
+        text=True, timeout=EXAMPLE_TIMEOUT_S, cwd=HERE)
+    line = {"example": "examples_torch/p2p_holonomic.py", "rc": out.returncode,
+            "seconds": time.time() - t0,
+            "stdout": out.stdout.strip().splitlines()[-1:]}
+    print("example " + json.dumps(line), flush=True)
+    check(out.returncode == 0,
+          f"examples_torch/p2p_holonomic.py failed: {out.stderr[-2000:]}")
 
 
 def k3_work(plan, B, n_inner, n_cands, phase=0):
@@ -503,7 +787,7 @@ def _merit(x, gv, a, lb, ub, gf):
 
 
 def k3_kernel_phase(runner, consts, x0, p0):
-    """Phase 5: K3 against its plain version at the main and rescue shapes
+    """Phase 6: K3 against its plain version at the main and rescue shapes
     on the main path's cold-solve inputs; returns the kernels-line record
     (main shape).  Three checks per shape:
 
@@ -758,11 +1042,11 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
     for name in ("psd_solve", "psd_solve_multi"):
         check(launches[name] == 0,
               f"{name} launched on the fused path ({launches[name]} times)")
-    return st, launches
+    return st, launches, out
 
 
 def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
-    """Phase 8: the compact-arrow path (K1 + K2) on the same runner and
+    """Phase 10: the compact-arrow path (K1 + K2) on the same runner and
     batch, with the fused plan taken off, warm-started from the fused cold
     solve; its launch counts are the K1/K2 records'."""
     import torch
@@ -917,6 +1201,17 @@ def cross_check_phase(T, runner, st, starts, goals):
 
 
 def main():
+    # an empty host-tensor cache of the run's own: the first build and the
+    # parity reference are computed here, never loaded
+    cache_root = tempfile.mkdtemp(prefix="omg_cache_")
+    os.environ["OMG_CACHE_DIR"] = cache_root
+    try:
+        run()
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+
+
+def run():
     sys.path.insert(0, HERE)
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -941,21 +1236,28 @@ def main():
         kernel_phase(device)
         return
     kernel_phase(device, timed=False)
-    runner, consts, starts, goals, x0, p0, state, setup_s = setup_phase(
-        T, device)
+    runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
+        setup_phase(T, device)
+    check(not hit, "the first build found its host tensors in the cache")
+    cache_phase(T, device, consts, setup_s)
     k3_entry, k3_timers = k3_kernel_phase(runner, consts, x0, p0)
-    st, launches = main_path_phase(runner, consts, starts, goals, x0, p0,
-                                   state, setup_s)
+    st, launches, main_out = main_path_phase(runner, consts, starts, goals,
+                                             x0, p0, state, setup_s)
+    parity_phase(runner, x0, p0, main_out["feas_p99"])
     profile_phase(runner, st, p0, state, "compact-arrow-fused")
     launches.update({k: v for k, v in compact_arrow_phase(
         runner, st, p0, state).items() if k != "fused_inner"})
     profile_phase(runner, st, p0, state, "compact-arrow")
     cross_check_phase(T, runner, st, starts, goals)
-    # phase 10: device times, after every timed rollout
+    k1_f64_launches, k1_f64_per_update = closed_loop_phase(device)
+    example_phase()
+    # phase 13: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
     k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
+    records.append(("psd_solve", k1_f64_record(device, k1_f64_launches,
+                                               k1_f64_per_update)))
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ thousands of scenarios on one NVIDIA H100.
 
 The port imports torch and numpy, never JAX nor anything of the JAX
 package.  Its entry points run on CUDA unless the caller passes
-``device="cpu"``.  So far it covers the batched p2p_holonomic rollout in
-the compact-arrow structure; ``ROADMAP.md`` lists what is still to port.
+``device="cpu"`` (a problem: the ``device`` option).  So far it covers
+the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``)
+with a Holonomic vehicle, the batched p2p_holonomic rollout and the scipy
+reference solver; ``ROADMAP.md`` lists what is still to port.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +27,9 @@ from .environment.obstacle import Obstacle
 from .models.base import Vehicle
 from .models.holonomic import Holonomic
 from .problems.problem import Problem
-from .problems.point2point import Point2point, FixedTPoint2point
+from .problems.point2point import (Point2point, Point2pointProblem,
+                                   FixedTPoint2point)
 from .problems.batch import BatchedP2PRunner
+from .execution.simulator import Simulator, Deployer
+from .execution.plotlayer import PlotLayer
 from .ops.alm import ALMOptions, ALMState

@@ -4,10 +4,11 @@
 For every (vehicle shape x obstacle) pair a separating hyperplane
 a(tau).p = b(tau) is introduced as degree-1 spline variables on the
 vehicle's knot lattice with ||a||^2 <= 1, and both parties (vehicle +
-obstacle) receive their half-space constraints.
+obstacle) receive their half-space constraints.  The host simulation
+advances the obstacles and reflects bouncing ones off other obstacles and
+the room borders.
 
-Not ported yet: inter-vehicle avoidance (the fleet path) and the host
-simulation / bounce / drawing of the deployment path.
+Not ported yet: inter-vehicle avoidance (the fleet path).
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ class Environment(OptiChild):
         for obstacle in (obstacles or []):
             self.add_obstacle(obstacle)
 
+    def copy(self):
+        obstacles = [Obstacle(o.initial, o.shape, o.simulation, dict(o.options))
+                     for o in self.obstacles]
+        return Environment(
+            [dict(r) for r in self.room], obstacles)
+
     def add_obstacle(self, obstacle):
         if isinstance(obstacle, list):
             for o in obstacle:
@@ -50,6 +57,13 @@ class Environment(OptiChild):
             raise ValueError("cannot put a 3D obstacle in a 2D environment")
         self.obstacles.append(obstacle)
         self.n_obs += 1
+
+    def fill_room(self, room, obstacles):
+        idx = self.room.index(room)
+        self.room[idx]["obstacles"] = obstacles
+        for o in obstacles:
+            if o not in self.obstacles:
+                self.obstacles.append(o)
 
     # -- modeling ----------------------------------------------------------
     def _hyperplane_basis(self, vehicle):
@@ -142,6 +156,62 @@ class Environment(OptiChild):
             a_init[i] = a0
             b_init[i, 0] = b0
         return a_init, b_init
+
+    # -- simulation --------------------------------------------------------
+    def simulate(self, simulation_time, sample_time):
+        for obstacle in self.obstacles:
+            if obstacle.options["bounce"]:
+                self._bounce(obstacle)
+            obstacle.simulate(simulation_time, sample_time)
+
+    def _bounce(self, obstacle):
+        """Reflect a moving obstacle off other obstacles / room borders
+        (omgtools environment.py:190-331, simplified to velocity
+        reflection along the blocked axis)."""
+        vel = obstacle.signals["velocity"][:, -1]
+        if not np.any(vel):
+            return
+        for obs in self.obstacles:
+            if obs is obstacle:
+                continue
+            if obstacle.overlaps_with(obs):
+                obstacle.signals["velocity"][:, -1] = \
+                    self._reflect(obstacle, vel,
+                                  lambda: obstacle.overlaps_with(obs))
+                return
+        if obstacle.is_outside_of(self.room[0]):
+            obstacle.signals["velocity"][:, -1] = \
+                self._reflect(obstacle, vel,
+                              lambda: obstacle.is_outside_of(self.room[0]))
+
+    def _reflect(self, obstacle, vel, still_colliding):
+        if np.any(vel == 0):
+            return -vel
+        # diagonal motion: probe which axis is blocked by shifting the
+        # obstacle slightly along the candidate new direction
+        pos = obstacle.signals["position"][:, -1].copy()
+        probe = np.array([0.15 * np.sign(vel[0]), -0.15 * np.sign(vel[1])])
+        obstacle.signals["position"][:, -1] = pos + probe
+        flipped_y = not still_colliding()
+        obstacle.signals["position"][:, -1] = pos
+        if flipped_y:
+            return np.array([vel[0], -vel[1]])
+        return np.array([-vel[0], vel[1]])
+
+    def draw(self, t=-1):
+        surfaces, lines = [], []
+        for room in self.room:
+            if room["draw"]:
+                s, l = room["shape"].draw(
+                    np.r_[room["position"],
+                          np.atleast_1d(room["orientation"])])
+                surfaces += s
+                lines += l
+        for obstacle in self.obstacles:
+            s, l = obstacle.draw(t)
+            surfaces += s
+            lines += l
+        return surfaces, lines
 
     def set_parameters(self, current_time):
         parameters = {self: {}}

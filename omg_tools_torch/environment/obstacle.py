@@ -5,10 +5,13 @@
   BSpline on the horizon-normalized basis [0,0,0,1,1,1] with the current
   time-offset correction;
 - arbitrary spline trajectories via the ``spline_traj`` option;
-- half-space constraints over shape checkpoints.
+- half-space constraints over shape checkpoints;
+- plant simulation (host numpy): closed-form constant-acceleration
+  propagation, a user's linear model x' = A x (+ B u), and scripted
+  position/velocity/acceleration increments; the bounce predicates and
+  drawing.
 
-Not ported yet: rotating obstacles (NURBS trig arcs) and the host plant
-simulation / bounce / drawing of the deployment path.
+Not ported yet: rotating obstacles (NURBS trig arcs).
 """
 
 from __future__ import annotations
@@ -36,15 +39,7 @@ class Obstacle(OptiChild):
         self.set_default_options()
         self.set_options(options or {})
         self.basis = Basis(np.array([0.0, 0, 0, 1, 1, 1]), 2)
-        self.signals: Dict[str, np.ndarray] = {"time": np.array([0.0])}
-        for key in ("position", "velocity", "acceleration"):
-            val = initial.get(key, np.zeros(self.n_dim))
-            self.signals[key] = np.asarray(val, dtype=np.float64).reshape(
-                self.n_dim, 1).copy()
-        for key in ("orientation", "angular_velocity"):
-            val = initial.get(key, 0.0)
-            self.signals[key] = np.atleast_1d(
-                np.asarray(val, dtype=np.float64)).reshape(-1, 1).copy()
+        self.prepare_simulation(initial, self.simulation)
         if float(self.signals["angular_velocity"][0, -1]) != 0.0:
             raise NotImplementedError(
                 "rotating obstacles are not ported to omg_tools_torch yet")
@@ -126,3 +121,186 @@ class Obstacle(OptiChild):
         parameters[self]["checkpoints"] = np.asarray(checkpoints)
         parameters[self]["rad"] = np.asarray(rad)
         return parameters
+
+    # -- simulation --------------------------------------------------------
+    def prepare_simulation(self, initial, simulation):
+        self.signals: Dict[str, np.ndarray] = {"time": np.array([0.0])}
+        for key in ("position", "velocity", "acceleration"):
+            val = initial.get(key, np.zeros(self.n_dim))
+            self.signals[key] = np.asarray(val, dtype=np.float64).reshape(
+                self.n_dim, 1).copy()
+        for key in ("orientation", "angular_velocity"):
+            val = initial.get(key, 0.0)
+            self.signals[key] = np.atleast_1d(
+                np.asarray(val, dtype=np.float64)).reshape(-1, 1).copy()
+        # custom linear simulation model x' = A x on the stacked
+        # [position; velocity; acceleration] state (omgtools
+        # environment.py 'model' simulation: e.g. the sinusoidal mover of
+        # annoying_obstacle.py, simulated truthfully while the NLP keeps
+        # its constant-acceleration prediction)
+        self.sim_A = None
+        self.sim_B = None
+        self._sim_Phi = (None, None, None)  # (dt, expm(A dt), ZOH Gamma)
+        model = simulation.get("model")
+        if model is not None and model.get("A") is not None:
+            self.sim_A = np.asarray(model["A"], dtype=np.float64)
+            if model.get("B") is not None:
+                self.sim_B = np.asarray(model["B"], dtype=np.float64)
+        # forced input u(t): linearly interpolated between the given sample
+        # points (omgtools ObstaclexD.ode integrates x' = A x + B u with
+        # interp1d)
+        self._input_traj = None
+        traj_in = simulation.get("trajectories", {}).get("input")
+        if traj_in is not None:
+            vv = np.asarray(traj_in["values"], dtype=np.float64)
+            if vv.ndim == 1:
+                # flat series = scalar-input model (one value per sample
+                # time), normalized to (n_times, n_inputs) like the
+                # omgtools' vstack(...).T before interp1d
+                vv = vv[:, None]
+            self._input_traj = (
+                np.asarray(traj_in["time"], dtype=np.float64), vv)
+            if self.sim_B is None:
+                raise ValueError(
+                    "input trajectory given but simulation model has no 'B'")
+        # user-scripted piecewise state increments: at the given times, the
+        # corresponding quantity jumps by the given value
+        self.increments = []
+        for key, idx in (("position", 0), ("velocity", 1),
+                         ("acceleration", 2)):
+            traj = simulation.get("trajectories", {}).get(key)
+            if traj is not None:
+                for time, val in zip(traj["time"], traj["values"]):
+                    if time != 0.0:
+                        self.increments.append(
+                            (float(time), idx,
+                             np.asarray(val, dtype=np.float64)))
+        self.increments.sort(key=lambda e: e[0])
+
+    def set_state(self, dictionary):
+        for key in ("position", "velocity", "acceleration"):
+            if key in dictionary:
+                self.signals[key] = np.asarray(
+                    dictionary[key], dtype=np.float64).reshape(self.n_dim, 1)
+            else:
+                self.signals[key] = np.zeros((self.n_dim, 1))
+
+    def simulate(self, simulation_time, sample_time):
+        n_samp = int(np.round(simulation_time / sample_time, 6))
+        t0 = self.signals["time"][-1]
+        pos = self.signals["position"][:, -1].copy()
+        vel = self.signals["velocity"][:, -1].copy()
+        acc = self.signals["acceleration"][:, -1].copy()
+        times, P, V, A = [], [], [], []
+        t = t0
+        for _ in range(n_samp):
+            t_next = t + sample_time
+            # apply scripted increments that fire in (t, t_next]
+            for (ti, idx, val) in self.increments:
+                if t < ti <= t_next:
+                    if idx == 0:
+                        pos += val
+                    elif idx == 1:
+                        vel += val
+                    else:
+                        acc += val
+            if self.sim_A is not None:
+                # exact discrete step of the user's linear model; with a B
+                # matrix the ZOH input matrix Gamma = int_0^dt e^(As) ds B
+                # comes from the augmented-matrix expm trick
+                if self._sim_Phi[0] != sample_time:
+                    from scipy.linalg import expm
+                    nA = self.sim_A.shape[0]
+                    if self.sim_B is not None:
+                        nB = self.sim_B.shape[1]
+                        Maug = np.zeros((nA + nB, nA + nB))
+                        Maug[:nA, :nA] = self.sim_A * sample_time
+                        Maug[:nA, nA:] = self.sim_B * sample_time
+                        E = expm(Maug)
+                        self._sim_Phi = (sample_time, E[:nA, :nA],
+                                         E[:nA, nA:])
+                    else:
+                        self._sim_Phi = (sample_time,
+                                         expm(self.sim_A * sample_time),
+                                         None)
+                _, Phi, Gamma = self._sim_Phi
+                x = Phi @ np.concatenate([pos, vel, acc])
+                if Gamma is not None:
+                    tt, vv = (self._input_traj if self._input_traj is not None
+                              else (np.zeros(1), np.zeros((1, Gamma.shape[1]))))
+                    # linear interpolation of the input trajectory at time t,
+                    # matching omgtools' interp1d over the stacked input
+                    # series (ref obstacle.py:172-264); np.interp clamps to
+                    # the end samples outside [tt[0], tt[-1]]
+                    u = np.array([np.interp(t, tt, vv[:, j])
+                                  for j in range(vv.shape[1])])
+                    x = x + Gamma @ np.atleast_1d(u)
+                n = self.n_dim
+                pos, vel, acc = x[:n].copy(), x[n:2 * n].copy(), \
+                    x[2 * n:].copy()
+            else:
+                pos = pos + vel * sample_time + 0.5 * acc * sample_time ** 2
+                vel = vel + acc * sample_time
+            t = t_next
+            times.append(t)
+            P.append(pos.copy())
+            V.append(vel.copy())
+            A.append(acc.copy())
+        if n_samp:
+            self.signals["time"] = np.r_[self.signals["time"], times]
+            self.signals["position"] = np.c_[self.signals["position"],
+                                             np.array(P).T]
+            self.signals["velocity"] = np.c_[self.signals["velocity"],
+                                             np.array(V).T]
+            self.signals["acceleration"] = np.c_[self.signals["acceleration"],
+                                                 np.array(A).T]
+            omega = self.signals["angular_velocity"][:, -1]
+            theta0 = self.signals["orientation"][:, -1]
+            steps = np.arange(1, n_samp + 1) * sample_time
+            self.signals["orientation"] = np.c_[
+                self.signals["orientation"], theta0[:, None] + omega[:, None]
+                * steps[None, :]]
+            self.signals["angular_velocity"] = np.c_[
+                self.signals["angular_velocity"],
+                np.tile(omega[:, None], (1, n_samp))]
+
+    # -- predicates for bouncing ------------------------------------------
+    def overlaps_with(self, other) -> bool:
+        from ..utils.geometry import (circle_polyhedron_intersect,
+                                      rectangles_overlap)
+        from .shapes import Circle, Rectangle
+        p1 = self.signals["position"][:, -1]
+        p2 = other.signals["position"][:, -1]
+        s1, s2 = self.shape, other.shape
+        if isinstance(s1, Circle) and isinstance(s2, Circle):
+            return np.linalg.norm(p1 - p2) <= s1.radius + s2.radius
+        if isinstance(s1, Circle) and isinstance(s2, Rectangle):
+            return circle_polyhedron_intersect(p1, s1.radius,
+                                               s2.vertices + p2[:, None])
+        if isinstance(s1, Rectangle) and isinstance(s2, Circle):
+            return circle_polyhedron_intersect(p2, s2.radius,
+                                               s1.vertices + p1[:, None])
+        if isinstance(s1, Rectangle) and isinstance(s2, Rectangle):
+            return rectangles_overlap(p1, s1.width, s1.height,
+                                      p2, s2.width, s2.height)
+        return False
+
+    def is_outside_of(self, room) -> bool:
+        lims = room["shape"].get_canvas_limits()
+        pos = self.signals["position"][:, -1]
+        own = self.shape.get_canvas_limits()
+        for k in range(self.n_dim):
+            lo = lims[k][0] + room["position"][k]
+            hi = lims[k][1] + room["position"][k]
+            if pos[k] + own[k][0] < lo or pos[k] + own[k][1] > hi:
+                return True
+        return False
+
+    def draw(self, t=-1):
+        if not self.options["draw"]:
+            return [], []
+        pose = np.zeros(2 * self.n_dim)
+        pose[:self.n_dim] = self.signals["position"][:, t]
+        if self.n_dim == 2:
+            pose[2] = self.signals["orientation"][0, t]
+        return self.shape.draw(pose)

@@ -245,6 +245,22 @@ class Transcription:
                 ub[sl] = BIG
         return lb, ub
 
+    def relayout(self):
+        """Re-run the layout pass to refresh the initial values (the
+        straight-line spline guesses and geometric hyperplane warm starts
+        follow the current vehicle prediction and obstacle positions).  The
+        structure must stay identical; only the blocks' values change."""
+        ctx = OptiContext("layout")
+        self.father._attach(ctx)
+        try:
+            self._build_fn()
+        finally:
+            self.father._attach(None)
+        if list(ctx.variables.keys()) != list(self.layout.variables.keys()):
+            raise RuntimeError("relayout changed the variable structure")
+        for key, blk in ctx.variables.items():
+            self.layout.variables[key].value = blk.value
+
     # -- packing helpers ---------------------------------------------------
     def var_slice(self, child, name):
         blk = self.layout.variables[(child.label, name)]

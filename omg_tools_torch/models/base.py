@@ -1,26 +1,29 @@
 """Vehicle base class (counterpart of ``omg_tools_tpu.models.base``):
-spline knot setup, spline decision variables and the 2D
-separating-hyperplane + room collision constraints.
+spline knot setup, spline decision variables, the 2D
+separating-hyperplane + room collision constraints, trajectory storage and
+the plant's prediction and simulation for the closed loop (host numpy).
 
-Not ported yet: plotting (the JAX class also derives from ``PlotLayer``),
-3D collision constraints, and the host deployment methods (store,
-predict, simulate, RK4 plant integration) that the simulator uses.
+Prediction and simulation use a fixed-step RK4 integrator with linear
+input interpolation between samples, as the JAX package does.
+
+Not ported yet: 3D collision constraints.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
 from ..modeling.opti import OptiChild, BIG
 from ..ops.basis import Basis, clamped_knots
-from ..ops.spline import definite_integral
+from ..ops.spline import BSpline, definite_integral, sample_spline
+from ..execution.plotlayer import PlotLayer, mix_with_white
 
 __all__ = ["Vehicle"]
 
 
-class Vehicle(OptiChild):
+class Vehicle(OptiChild, PlotLayer):
 
     def __init__(self, n_spl, degree, shapes, options=None):
         OptiChild.__init__(self, "vehicle")
@@ -33,6 +36,11 @@ class Vehicle(OptiChild):
         self.degree = degree
         self.prediction: Dict[str, np.ndarray] = {}
         self.init_spline_values = None
+        self.trajectories: Dict[str, np.ndarray] = {}
+        self.signals: Dict[str, np.ndarray] = {}
+        # per-update trajectory history for movie replay
+        self.traj_storage: List[Dict[str, np.ndarray]] = []
+        self.traj_times: List[float] = []
         self.set_default_options()
         self.set_options(options or {})
         self.define_knots(knot_intervals=10)
@@ -174,6 +182,246 @@ class Vehicle(OptiChild):
                     con = con + (-hpp["b"] + rad[l]) * (1 + tg_ha ** 2)
                     self.define_constraint(con, -BIG, 0.0)
 
+    # -- deployment --------------------------------------------------------
+    def store(self, current_time, sample_time, spline_segments, segment_times,
+              time_axis=None):
+        """Turn solved coefficients into sampled state/input trajectories
+        (omgtools vehicle.py:250-300)."""
+        if not isinstance(segment_times, list):
+            segment_times = [segment_times]
+        horizon_time = float(np.sum(segment_times))
+        if len(spline_segments) == 1:
+            # single segment: scale basis [0,1] -> [0, horizon]
+            splines = [BSpline(self.basis.scale(segment_times[0]),
+                               np.asarray(spline_segments[0])[:, k])
+                       for k in range(self.n_spl)]
+        else:
+            splines = _concat_segments(self, spline_segments, segment_times)
+        self.result_splines = splines
+        if time_axis is None:
+            n_samp = int(round(horizon_time / sample_time, 6)) + 1
+            time_axis = np.linspace(0.0, (n_samp - 1) * sample_time, n_samp)
+        self.trajectories = self.splines2signals(splines, time_axis)
+        if not {"state", "input"}.issubset(self.trajectories):
+            raise ValueError("signals must contain at least state and input")
+        self.trajectories["time"] = time_axis - time_axis[0] + current_time
+        self.trajectories["pose"] = np.apply_along_axis(
+            self.state2pose, 0, self.trajectories["state"])
+        self.trajectories["splines"] = np.vstack(
+            [sample_spline(s, time_axis) for s in splines])
+        for key, val in list(self.trajectories.items()):
+            if val.ndim == 1:
+                self.trajectories[key] = val[None, :]
+        self.traj_storage.append({k: v.copy()
+                                  for k, v in self.trajectories.items()})
+        self.traj_times.append(float(current_time))
+
+    def predict(self, current_time, predict_time, sample_time, state0=None,
+                input0=None, dinput0=None, delay=0, enforce_states=False,
+                enforce_inputs=False):
+        """Predict the plant state one MPC period ahead
+        (omgtools vehicle.py:302-337)."""
+        if enforce_states:
+            if state0 is None and self.signals:
+                state0 = self.signals["state"][:, -1]
+            if state0 is not None:
+                if enforce_inputs:
+                    input0 = input0 if input0 is not None else (
+                        self.signals["input"][:, -1] if self.signals else None)
+                    self.set_initial_conditions(state0, input=input0)
+                else:
+                    self.set_initial_conditions(state0)
+            # else: keep the prediction set by set_initial_conditions
+            return
+        n_samp = int(np.round(predict_time / sample_time, 6))
+        if self.options["ideal_prediction"]:
+            for key in self.trajectories:
+                self.prediction[key] = self.trajectories[key][:, n_samp + delay]
+        else:
+            for key in self.trajectories:
+                if key not in ("state", "input", "pose"):
+                    self.prediction[key] = self.trajectories[key][:, n_samp + delay]
+            inputs = self.trajectories["input"][:, delay:]
+            if state0 is None:
+                state0 = self.signals["state"][:, -n_samp - 1]
+            state = self.integrate_plant(state0, inputs, predict_time,
+                                         sample_time)
+            self.prediction["state"] = state[:, -1]
+            self.prediction["input"] = self.trajectories["input"][:, n_samp + delay]
+            self.prediction["pose"] = self.state2pose(state[:, -1])
+
+    def simulate(self, simulation_time, sample_time):
+        """Advance the simulated plant (omgtools vehicle.py:359-401)."""
+        if not self.signals:
+            self.signals = {k: v[:, :1].copy()
+                            for k, v in self.trajectories.items()}
+        n_samp = int(np.round(simulation_time / sample_time, 6))
+        if self.options["ideal_update"]:
+            for key in self.trajectories:
+                self.signals[key] = np.c_[self.signals[key],
+                                          self.trajectories[key][:, 1:n_samp + 1]]
+        else:
+            for key in self.trajectories:
+                if key not in ("state", "input", "pose"):
+                    self.signals[key] = np.c_[
+                        self.signals[key],
+                        self.trajectories[key][:, 1:n_samp + 1]]
+            inputs = self.trajectories["input"]
+            if self.options["input_disturbance"] is not None:
+                inputs = self.add_disturbance(inputs)
+            if self.options["1storder_delay"]:
+                tau = self.options["time_constant"]
+                inputs = self.integrate_plant(
+                    self.signals["input"][:, -1], inputs, simulation_time,
+                    sample_time,
+                    ode=lambda s, u: (u - s) / tau)
+            state0 = self.signals["state"][:, -1]
+            state = self.integrate_plant(state0, inputs, simulation_time,
+                                         sample_time)
+            self.signals["input"] = np.c_[self.signals["input"],
+                                          inputs[:, 1:n_samp + 1]]
+            self.signals["state"] = np.c_[self.signals["state"],
+                                          state[:, 1:n_samp + 1]]
+            pose = np.apply_along_axis(self.state2pose, 0,
+                                       state[:, 1:n_samp + 1]) \
+                if n_samp else np.zeros((len(self.state2pose(state0)), 0))
+            self.signals["pose"] = np.c_[self.signals["pose"], pose]
+
+    def add_disturbance(self, inputs):
+        dist = self.options["input_disturbance"]
+        if dist is None:
+            return inputs
+        from scipy.signal import filtfilt, butter
+        fc, stdev = dist["fc"], np.asarray(dist["stdev"])
+        mean = np.asarray(dist.get("mean", np.zeros_like(stdev)))
+        filt = butter(3, fc, "low")
+        noise = np.vstack([
+            filtfilt(filt[0], filt[1],
+                     np.random.normal(mean[k], stdev[k], inputs.shape[1]))
+            for k in range(inputs.shape[0])])
+        return inputs + noise
+
+    def overrule_state(self, state):
+        state = np.asarray(state, dtype=np.float64)
+        self.signals["state"][:, -1] = state
+        self.signals["pose"][:, -1] = self.state2pose(state)
+        self.prediction["state"] = state
+        self.prediction["pose"] = self.state2pose(state)
+
+    def overrule_input(self, inp, dinput=None):
+        inp = np.asarray(inp, dtype=np.float64)
+        self.signals["input"][:, -1] = inp
+        self.prediction["input"] = inp
+        if dinput is not None:
+            self.prediction["dinput"] = np.asarray(dinput)
+
+    # -- integrators -------------------------------------------------------
+    def integrate_plant(self, state0, inputs, integration_time, sample_time,
+                        ode=None):
+        """Fixed-step RK4 with linear input interpolation between samples."""
+        ode = ode or self.ode
+        n_samp = int(np.round(integration_time / sample_time, 6)) + 1
+        inputs = np.atleast_2d(np.asarray(inputs, dtype=np.float64))
+        state = np.zeros((len(np.atleast_1d(state0)), n_samp))
+        state[:, 0] = np.atleast_1d(state0)
+        n_in = inputs.shape[1]
+
+        def u_at(i_float):
+            i0 = min(int(np.floor(i_float)), n_in - 1)
+            i1 = min(i0 + 1, n_in - 1)
+            w = i_float - i0
+            return (1 - w) * inputs[:, i0] + w * inputs[:, i1]
+
+        h = sample_time
+        for i in range(n_samp - 1):
+            y = state[:, i]
+            k1 = np.asarray(ode(y, u_at(i)))
+            k2 = np.asarray(ode(y + 0.5 * h * k1, u_at(i + 0.5)))
+            k3 = np.asarray(ode(y + 0.5 * h * k2, u_at(i + 0.5)))
+            k4 = np.asarray(ode(y + h * k3, u_at(i + 1.0)))
+            state[:, i + 1] = y + h / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        return state
+
+    def draw(self, t=-1):
+        surf, lines = [], []
+        for shape in self.shapes:
+            s, l = shape.draw(self.signals["pose"][:, t])
+            surf += s
+            lines += l
+        return surf, lines
+
+    # -- plot providers (omgtools vehicle.py:470-525) ----------------------
+    def _traj_at(self, t):
+        """Latest stored trajectory active at sample index ``t``."""
+        if not self.traj_storage:
+            return None
+        if t in (-1, None) or "time" not in self.signals:
+            return self.traj_storage[-1]
+        tm = float(self.signals["time"][0, t]
+                   if self.signals["time"].ndim > 1
+                   else self.signals["time"][t])
+        idx = int(np.searchsorted(np.asarray(self.traj_times), tm + 1e-9)) - 1
+        return self.traj_storage[max(idx, 0)]
+
+    def init_plot(self, argument, **kwargs):
+        source = self.signals or self.trajectories
+        if argument not in source:
+            return None
+        n_rows = np.atleast_2d(source[argument]).shape[0]
+        labels = kwargs.get(
+            "labels", [f"{argument}[{k}]" for k in range(n_rows)])
+        color = kwargs.get("color", "tab:blue")
+        info = []
+        for k in range(n_rows):
+            lines = [{"color": color},
+                     {"color": mix_with_white(color, 60.0),
+                      "linestyle": "--"}]
+            if kwargs.get("knots"):
+                lines.append({"color": color, "linestyle": "none",
+                              "marker": "x"})
+            if kwargs.get("prediction"):
+                lines.append({"color": color, "linestyle": "none",
+                              "marker": "o"})
+            info.append([{"labels": ["t (s)", labels[k]], "lines": lines}])
+        return info
+
+    def update_plot(self, argument, t, **kwargs):
+        source = self.signals or self.trajectories
+        if argument not in source:
+            return None
+        sig = np.atleast_2d(source[argument])
+        time = np.atleast_2d(source.get("time", np.arange(sig.shape[1])))[0]
+        end = sig.shape[1] if t in (-1, None) else t + 1
+        traj = self._traj_at(t)
+        data = []
+        for k in range(sig.shape[0]):
+            lines = [np.vstack([time[:end], sig[k, :end]])]
+            if traj is not None and argument in traj:
+                tr = np.atleast_2d(traj[argument])
+                tr_t = np.atleast_2d(traj["time"])[0]
+                lines.append(np.vstack([tr_t, tr[k]]))
+            else:
+                lines.append(np.zeros((2, 0)))
+            if kwargs.get("knots"):
+                lines.append(self._knot_points(argument, traj, k))
+            if kwargs.get("prediction") and traj is not None:
+                tr = np.atleast_2d(traj[argument])
+                tr_t = np.atleast_2d(traj["time"])[0]
+                lines.append(np.array([[tr_t[0]], [tr[k, 0]]]))
+            data.append([lines])
+        return data
+
+    def _knot_points(self, argument, traj, k):
+        if traj is None or argument not in traj:
+            return np.zeros((2, 0))
+        tr_t = np.atleast_2d(traj["time"])[0]
+        horizon = tr_t[-1] - tr_t[0]
+        interior = np.unique(self.knots)[1:-1]
+        knot_times = tr_t[0] + interior * horizon
+        tr = np.atleast_2d(traj[argument])
+        vals = np.interp(knot_times, tr_t, tr[k])
+        return np.vstack([knot_times, vals])
+
     # -- hooks required from concrete vehicles -----------------------------
     def init(self):
         pass
@@ -189,3 +437,66 @@ class Vehicle(OptiChild):
 
     def get_terminal_constraints(self, splines, horizon_time=None):
         raise NotImplementedError
+
+    def check_terminal_conditions(self):
+        raise NotImplementedError
+
+    def splines2signals(self, splines, time):
+        raise NotImplementedError
+
+    def state2pose(self, state):
+        raise NotImplementedError
+
+    def ode(self, state, input):
+        raise NotImplementedError
+
+
+def _concat_segments(vehicle, spline_segments, segment_times,
+                     continuity=None):
+    """Concatenate per-segment splines into one spline over the full horizon
+    via collocation on a union knot vector (omgtools
+    spline_extra.py:308-404).  Multi-frame solutions are C^(degree-1)
+    continuous at the joints (connection constraints), so a single knot per
+    joint suffices; the least-squares fallback in solve_collocation absorbs
+    small continuity residuals."""
+    degree = vehicle.degree
+    n_spl = vehicle.n_spl
+    if continuity is None:
+        continuity = degree - 1
+    mult = degree + 1 - continuity - 1  # knots to insert at each joint
+    mult = max(mult, 1)
+    out = []
+    for k in range(n_spl):
+        shift = 0.0
+        segs = []
+        interior = []
+        joints = []
+        for seg, T in zip(spline_segments, segment_times):
+            b = vehicle.basis.scale(T, shift)
+            segs.append((b, np.asarray(seg)[:, k]))
+            interior.append(b.knots[degree + 1:-(degree + 1)])
+            shift += T
+            joints.append(shift)
+        lo = 0.0
+        knots = [np.full(degree + 1, lo)]
+        for kn, joint in zip(interior, joints):
+            knots.append(kn)
+            if joint < shift:  # interior joint
+                knots.append(np.full(mult, joint))
+        knots.append(np.full(degree + 1, shift))
+        union = Basis(np.concatenate(knots), degree)
+
+        def rhs(g):
+            vals = np.zeros(len(g))
+            done = np.zeros(len(g), dtype=bool)
+            for b, c in segs:
+                blo, bhi = b.domain
+                m = (g >= blo) & (g <= bhi) & ~done
+                if m.any():
+                    vals[m] = b.eval(g[m]) @ c
+                    done |= m
+            return vals
+
+        coeffs = union.solve_collocation(rhs)
+        out.append(BSpline(union, coeffs))
+    return out

@@ -13,6 +13,7 @@ import numpy as np
 from .base import Vehicle
 from ..environment.shapes import Circle
 from ..modeling.opti import BIG
+from ..ops.spline import sample_spline
 
 __all__ = ["Holonomic"]
 
@@ -113,9 +114,34 @@ class Holonomic(Vehicle):
                           for k in range(2)], axis=1)
                 for l in range(len(pts) - 1)]
 
+    def check_terminal_conditions(self):
+        tol = self.options["stop_tol"]
+        return (np.linalg.norm(self.signals["state"][:, -1] - self.poseT)
+                <= tol and
+                np.linalg.norm(self.signals["input"][:, -1]) <= tol)
+
     def set_parameters(self, current_time):
         parameters = Vehicle.set_parameters(self, current_time)
         parameters[self]["state0"] = self.prediction["state"]
         parameters[self]["input0"] = self.prediction["input"]
         parameters[self]["poseT"] = self.poseT
         return parameters
+
+    # -- signals -----------------------------------------------------------
+    def splines2signals(self, splines, time):
+        x, y = splines
+        dx, dy = x.derivative(), y.derivative()
+        ddx, ddy = x.derivative(2), y.derivative(2)
+        state = np.vstack([sample_spline(s, time) for s in (x, y)])
+        inp = np.vstack([sample_spline(s, time) for s in (dx, dy)])
+        return {
+            "state": state, "input": inp,
+            "v_tot": np.sqrt(inp[0] ** 2 + inp[1] ** 2),
+            "dinput": np.vstack([sample_spline(s, time) for s in (ddx, ddy)]),
+        }
+
+    def state2pose(self, state):
+        return np.r_[np.asarray(state), 0.0]
+
+    def ode(self, state, input):
+        return np.asarray(input, dtype=np.float64)

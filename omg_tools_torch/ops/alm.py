@@ -1,26 +1,35 @@
-"""Batched augmented-Lagrangian (PHR) NLP solver, compact-arrow mode
-(counterpart of ``omg_tools_tpu.ops.alm``).
+"""Batched augmented-Lagrangian (PHR) NLP solver (counterpart of
+``omg_tools_tpu.ops.alm``).
 
 - constraints lb <= g(x,p) <= ub via the Powell-Hestenes-Rockafellar
   augmented Lagrangian: with r = g + lam/rho and P = proj(r, [lb, ub]),
       L(x) = f(x) + rho/2 * || r - P ||^2  - ||lam||^2/(2 rho)
   whose gradient is grad f + J^T y_hat, y_hat = rho * (r - P);
-- inner minimization by Gauss-Newton steps on the block-arrow system
-  (head Schur complement over tail blocks, ``ops.compact``), solved with
-  the K2 (tail blocks) and K1 (head) kernels, then a parallel Armijo
-  search along the exact quadratic merit expansion -- or, given a
-  ``FusedPlan``, every inner step of an outer round in one launch of K3
-  (``ops.fused_alm``);
+- inner minimization by Newton steps on H = W + rho J^T D J (D the
+  active-row mask) and a parallel Armijo search over candidate step
+  lengths, in one of these modes:
+  - generic: J, g and grad f by ``torch.func`` AD every iteration, the
+    Gauss-Newton H plus the objective's own Hessian (``hessian="gn"``,
+    solved with K1) or the saddle-free exact Newton step in the
+    eigenbasis of H (``hessian="eigh"``);
+  - dense quadratic (``quadratic_Q``): g = c + A x + x'Q x with constant
+    Q, so J and g are einsums with AD once per solve, and the line search
+    is exact along the step;
+  - compact (``compact``): family-compacted einsums (``ops.compact``);
+    with an arrow partition the Newton system is block-arrow (head Schur
+    complement over tail blocks: K2 for the blocks, K1 for the head),
+    without one the dense compact Hessian goes to K1 -- or, given a
+    ``FusedPlan``, every inner step of an outer round is one launch of K3
+    (``ops.fused_alm``);
 - outer updates: lam <- y_hat; rho grows when feasibility stalls.
 
 Every runtime tensor carries an explicit leading batch axis B (the JAX
-solver is written per scenario and lifted by ``vmap``); every reduction is
-per lane.  The JAX ``while_loop`` under ``vmap`` becomes a host loop that
-runs while any lane is active and freezes the lanes that are done.
-
-Not ported yet: the dense-quadratic and generic (AD per iteration) modes,
-the compact mode without an arrow partition, the saddle-free ``eigh``
-Hessian and ``diagnose``.
+solver is written per scenario and lifted by ``vmap``; a single problem is
+B = 1); every reduction is per lane.  The JAX ``while_loop`` under
+``vmap`` becomes a host loop that runs while any lane is active (one host
+check an outer round) and freezes the lanes that are done.  Every
+Cholesky goes through ``psd_solve`` / ``psd_solve_multi``: the kernels on
+CUDA tensors, their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, jacfwd, jvp
+from torch.func import grad, hessian, jacfwd, jvp, vmap
 from torch.profiler import record_function
 
 from .solver import BIG
@@ -55,6 +64,9 @@ class ALMOptions(NamedTuple):
                             1e-3, 4e-4, 1.5e-4)
     armijo: float = 1e-4
     max_step: float = 10.0     # trust cap on ||dx||_inf
+    eig_floor_rel: float = 1e-8  # relative eigenvalue floor ('eigh')
+    hessian: str = "gn"        # 'gn' (Gauss-Newton + Cholesky); anything
+    #                            else: 'eigh' (saddle-free exact Newton)
     gn_delta_rel: float = 1e-6  # GN ridge relative to the penalty scale
 
 
@@ -109,18 +121,30 @@ def detect_quadratic_structure(g, n_x, p_ref, x_probe=None, tol=1e-6,
     return Q
 
 
+
+
 def make_alm_solver(f: Callable, g: Callable, n_x: int,
                     lb0: np.ndarray, ub0: np.ndarray,
                     options: ALMOptions = ALMOptions(),
                     row_scale: Optional[np.ndarray] = None,
-                    obj_scale: float = 1.0, compact=None, fused_plan=None):
-    """Build ``solve(x0, p, lb, ub, state0=None, outer_iter=None, ct=...,
-    fshared=...)``
-    minimizing f s.t. lb <= g <= ub over a batch: x0 (B, n), p (B, n_p),
-    lb/ub (m,) in raw units and transcription row order.
+                    obj_scale: float = 1.0,
+                    quadratic_Q: Optional[np.ndarray] = None,
+                    compact=None, fused_plan=None):
+    """Build ``solve(x0, p, lb, ub, state0=None, outer_iter=None, cA=None,
+    Q=None, ct=None, fshared=None)`` minimizing f s.t. lb <= g <= ub over a
+    batch: x0 (B, n), p (B, n_p), lb/ub (m,) in raw units and transcription
+    row order.  ``f(x, p)`` and ``g(x, p)`` take one scenario's (n,) and
+    (n_p,) tensors; the solver lifts them with ``torch.func.vmap``.
 
-    ``compact``: an :class:`ops.compact.CompactStructure` with an arrow
-    partition.  Callers pass the phase-resolved tensors as ``ct`` (from
+    ``quadratic_Q``: constant (m, n, n) tensor from
+    :func:`detect_quadratic_structure`.  The inner loop then uses the
+    closed quadratic form, with AD only once per solve at x = 0 -- or none,
+    given ``cA = (c, A, f0, gf)`` in raw units with a leading batch axis.
+    ``Q``: the scaled tensor (``solve.Q_scaled``) already on the device,
+    passed in place of the solver's own copy.
+
+    ``compact``: an :class:`ops.compact.CompactStructure`; callers then pass
+    the phase-resolved tensors as ``ct`` (from
     :func:`ops.compact.resolve_phase`).  Row scaling is baked into the
     compact tensors; lb/ub are scaled and permuted into the compact row
     order here.
@@ -128,40 +152,77 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
     ``fused_plan``: an :class:`ops.fused_alm.FusedPlan` of ``compact``.
     Callers then pass one phase's shared operands as
     ``fshared=FusedPlan.slice_phase(shared, phase)`` instead of ``ct``, and
-    each outer round is one :func:`ops.fused_alm.fused_inner` call."""
-    if compact is None or compact.arrow is None:
-        raise NotImplementedError(
-            "omg_tools_torch ports the compact-arrow ALM mode only so far")
+    each outer round is one :func:`ops.fused_alm.fused_inner` call.
+
+    Without ``compact`` or ``quadratic_Q`` the solver is generic: J, g, the
+    gradient and the objective's Hessian by AD at every iteration."""
     lb0 = np.asarray(lb0, dtype=np.float64)
     m = lb0.shape[0]
     opt = options
-    row_perm = np.asarray(compact.row_perm)
+    row_perm = None if compact is None else np.asarray(compact.row_perm)
     d_np = None if row_scale is None else np.asarray(row_scale,
                                                      dtype=np.float64)
-    inv_d_np = None if d_np is None else 1.0 / d_np[row_perm]
+    inv_d_np = None
+    if d_np is not None:
+        inv_d_np = 1.0 / d_np if row_perm is None else 1.0 / d_np[row_perm]
+    Qs_np = None
+    if quadratic_Q is not None:
+        Qs_np = np.asarray(quadratic_Q, dtype=np.float64)
+        if d_np is not None:
+            Qs_np = Qs_np * d_np[:, None, None]
+        # row-major, so that the einsums read it in place
+        Qs_np = np.ascontiguousarray(Qs_np)
     _cache = {}
 
     def consts(dtype, device):
+        """(d, 1/d in the solver's row order, row_perm, candidates, fused
+        pcols, Qs) on ``device``; made once per (dtype, device)."""
         key = (dtype, device)
         if key not in _cache:
             def t(a):
                 return None if a is None else torch.as_tensor(
                     a, dtype=dtype, device=device)
-            _cache[key] = (t(d_np), t(inv_d_np),
-                           torch.as_tensor(row_perm, device=device),
-                           t(np.asarray(opt.ls_candidates)),
-                           None if fused_plan is None else torch.as_tensor(
-                               fused_plan.pcols, device=device))
+            _cache[key] = (
+                t(d_np), t(inv_d_np),
+                None if row_perm is None else torch.as_tensor(
+                    row_perm, device=device),
+                t(np.asarray(opt.ls_candidates)),
+                None if fused_plan is None else torch.as_tensor(
+                    fused_plan.pcols, device=device),
+                t(Qs_np))
         return _cache[key]
 
-    def _scale_rt(lb, ub, dtype, device):
-        d, _, perm, _, _ = consts(dtype, device)
+    # the scaled functions of one scenario (the JAX solver's f and g)
+    if d_np is not None:
+        f_raw, g_raw = f, g
+
+        def f(x, p):
+            return obj_scale * f_raw(x, p)
+
+        def g(x, p):
+            return consts(x.dtype, x.device)[0] * g_raw(x, p)
+
+    grad_f = grad(f)
+    hess_f = hessian(f)
+    jac_g = jacfwd(g)
+
+    def lagrangian(x, p, lam):
+        return f(x, p) + g(x, p) @ lam
+
+    hess_L = hessian(lagrangian)
+
+    def scale_bounds(lb, ub, dtype, device, permute=True):
+        """Runtime bounds scaled like the rows (and, for a compact solver,
+        permuted into its row order unless ``permute`` is False)."""
+        d, _, perm = consts(dtype, device)[:3]
         lb = torch.as_tensor(lb, dtype=dtype, device=device)
         ub = torch.as_tensor(ub, dtype=dtype, device=device)
         if d is not None:
             lb = torch.where(lb > -BIG / 2, d * lb, lb)
             ub = torch.where(ub < BIG / 2, d * ub, ub)
-        return lb[perm], ub[perm]
+        if perm is not None and permute:
+            return lb[perm], ub[perm]
+        return lb, ub
 
     def multiplier_estimate(gv, lam, rho, lb, ub):
         r = gv + lam / rho[:, None]
@@ -173,6 +234,76 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
         r = gv + lam / rb
         return 0.5 * rho.reshape((-1,) + (1,) * (gv.dim() - 2)) \
             * ((r - torch.clamp(r, lb, ub)) ** 2).sum(-1)
+
+    def ridged(H):
+        """H plus the Gauss-Newton ridge, relative to its largest diagonal."""
+        scale = torch.clamp(H.diagonal(dim1=-2, dim2=-1).abs().amax(-1),
+                            min=1.0)
+        eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+        return H + (opt.gn_delta_rel * scale + opt.delta)[:, None, None] * eye
+
+    def make_evals_compact(ct):
+        work = CompactWork(compact, ct)
+        return dict(mode="compact", work=work, g=work.g, f=work.f)
+
+    def make_evals(p, dtype, device, cA=None, Q=None):
+        """Per-solve evaluation handles for the dense quadratic or the
+        generic mode (batched over p's leading axis)."""
+        B = p.shape[0]
+        if Qs_np is not None:
+            if cA is not None:
+                c_raw, A_raw, f0_raw, gf_raw = (
+                    torch.as_tensor(a, dtype=dtype, device=device)
+                    for a in cA)
+                if d_np is not None:
+                    d = consts(dtype, device)[0]
+                    cC = d * c_raw
+                    A = d[:, None] * A_raw
+                    f0 = obj_scale * f0_raw
+                    gf = obj_scale * gf_raw
+                else:
+                    cC, A, f0, gf = c_raw, A_raw, f0_raw, gf_raw
+            else:
+                zero = torch.zeros((B, n_x), dtype=dtype, device=device)
+                cC = vmap(g)(zero, p)
+                A = vmap(jac_g)(zero, p)
+                f0 = vmap(f)(zero, p)
+                gf = vmap(grad_f)(zero, p)   # the objective is linear in x
+            Qs = consts(dtype, device)[5] if Q is None else Q
+
+            def J_eval(x):
+                return A + 2.0 * torch.einsum("kij,bj->bki", Qs, x)
+
+            def g_from_J(x, J):
+                # g(x) = c + A x + x'Q x = c + 0.5 (A + J(x)) x
+                return cC + 0.5 * ((A + J) @ x[:, :, None])[:, :, 0]
+
+            return dict(mode="quadratic", quadratic=True, J=J_eval,
+                        g_from_J=g_from_J,
+                        g=lambda x: g_from_J(x, J_eval(x)),
+                        quad_dir=lambda d_: torch.einsum(
+                            "kij,bi,bj->bk", Qs, d_, d_),
+                        f=lambda x: f0 + (x * gf).sum(-1),
+                        gf=lambda x: gf, Qs=Qs)
+
+        def along(fn):
+            """fn over (B, L, n) points, the L points of a lane sharing
+            its parameters."""
+            def call(X):
+                L = X.shape[1]
+                out = vmap(fn)(X.reshape(B * L, -1),
+                               p.repeat_interleave(L, dim=0))
+                return out.reshape((B, L) + out.shape[1:])
+            return call
+
+        return dict(mode="generic", quadratic=False,
+                    g=lambda x: vmap(g)(x, p),
+                    J=lambda x: vmap(jac_g)(x, p),
+                    f=lambda x: vmap(f)(x, p),
+                    gf=lambda x: vmap(grad_f)(x, p),
+                    Hf=lambda x: vmap(hess_f)(x, p),
+                    HL=lambda x, y: vmap(hess_L)(x, p, y),
+                    g_along=along(g), f_along=along(f))
 
     def arrow_newton_step(work, Jf, y_hat, active, rho):
         """Block-arrow Newton solve: factor every tail block with K2 (the
@@ -208,15 +339,76 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             dx = -work.arrow_scatter(dx_h, dx_b)
         return grad_, dx
 
-    def inner_step(work, x, lam, rho, lb, ub):
-        """One Newton step per lane: block-arrow system + exact-quadratic
-        Armijo search over the candidate step lengths."""
+    def newton_compact(evals, x, lam, rho, lb, ub):
+        """The compact modes' Newton step: (grad, dx, gv, line-search
+        closure of the exact quadratic merit expansion along dx)."""
+        work = evals["work"]
         with record_function("alm.assemble"):
             Jf = work.jacobians(x)
             gv = work.g_from_J(x, Jf)
             y_hat = multiplier_estimate(gv, lam, rho, lb, ub)
             active = (y_hat.abs() > 0.0).to(x.dtype)
-        grad_, dx = arrow_newton_step(work, Jf, y_hat, active, rho)
+        if compact.arrow is not None:
+            grad_, dx = arrow_newton_step(work, Jf, y_hat, active, rho)
+        else:
+            with record_function("alm.assemble"):
+                grad_ = work.grad(Jf, y_hat)
+                H = ridged(work.hessian(Jf, active, rho, 0.0))
+            with record_function("alm.head_solve"):
+                dx = -psd_solve(H.contiguous(), grad_.contiguous())
+
+        def expansion(dx):
+            return work.Jd(Jf, dx), work.quad_dir(dx), dx @ work.gf(x)
+        return grad_, dx, gv, expansion
+
+    def newton_dense(evals, x, lam, rho, lb, ub):
+        """The dense quadratic and generic modes' Newton step."""
+        with record_function("alm.assemble"):
+            J = evals["J"](x)                                 # (B, m, n)
+            gv = evals["g_from_J"](x, J) if evals["quadratic"] \
+                else evals["g"](x)
+            y_hat = multiplier_estimate(gv, lam, rho, lb, ub)
+            Jt = J.transpose(1, 2)
+            grad_ = evals["gf"](x) + (Jt @ y_hat[:, :, None])[:, :, 0]
+            active = (y_hat.abs() > 0.0).to(x.dtype)
+            Hpen = rho[:, None, None] * ((Jt * active[:, None, :]) @ J)
+        if opt.hessian == "gn":
+            # Gauss-Newton: penalty curvature plus the objective's own
+            # Hessian, which the quadratic mode's linear objective lacks
+            if not evals["quadratic"]:
+                Hpen = Hpen + evals["Hf"](x)
+            with record_function("alm.head_solve"):
+                dx = -psd_solve(ridged(Hpen).contiguous(), grad_.contiguous())
+        else:
+            with record_function("alm.eigh"):
+                if evals["quadratic"]:
+                    W = 2.0 * torch.einsum("kij,bk->bij", evals["Qs"], y_hat)
+                else:
+                    W = evals["HL"](x, y_hat)
+                H = W + Hpen
+                H = 0.5 * (H + H.transpose(1, 2))
+                ev, vecs = torch.linalg.eigh(H)
+                # saddle-free Newton in the eigenbasis: negative curvature
+                # uses |lambda|; the relative floor bounds the conditioning
+                floor = torch.clamp(
+                    opt.eig_floor_rel * ev.abs().amax(-1), min=opt.delta)
+                ev_used = torch.maximum(ev.abs(), floor[:, None])
+                coef = (vecs.transpose(1, 2) @ grad_[:, :, None])[:, :, 0]
+                dx = -(vecs @ (coef / ev_used)[:, :, None])[:, :, 0]
+        expansion = None
+        if evals["quadratic"]:
+            def expansion(dx):
+                return ((J @ dx[:, :, None])[:, :, 0], evals["quad_dir"](dx),
+                        (evals["gf"](x) * dx).sum(-1))
+        return grad_, dx, gv, expansion
+
+    def inner_step(evals, x, lam, rho, lb, ub):
+        """One Newton step per lane and the parallel Armijo search over the
+        candidate step lengths (the merit exact along dx when g is
+        quadratic, evaluated at every candidate otherwise)."""
+        newton = newton_compact if evals["mode"] == "compact" \
+            else newton_dense
+        grad_, dx, gv, expansion = newton(evals, x, lam, rho, lb, ub)
         with record_function("alm.line_search"):
             finite = torch.isfinite(dx).all(-1, keepdim=True)
             gnorm = torch.linalg.vector_norm(grad_, dim=-1, keepdim=True)
@@ -227,16 +419,19 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 max=1.0)[:, None]
             slope = (grad_ * dx).sum(-1)
             cands = consts(x.dtype, x.device)[3]
-            fx = work.f(x)
+            fx = evals["f"](x)
             m0 = fx + penalty_term(gv, lam, rho, lb, ub)
-            Jd = work.Jd(Jf, dx)
-            qd = work.quad_dir(dx)
-            df = dx @ work.gf(x)
-            a = cands[None, :, None]
-            g_a = gv[:, None, :] + a * Jd[:, None, :] \
-                + (a * a) * qd[:, None, :]
-            mvals = fx[:, None] + cands[None, :] * df[:, None] \
-                + penalty_term(g_a, lam[:, None, :], rho, lb, ub)  # (B, L)
+            if expansion is not None:
+                Jd, qd, df = expansion(dx)
+                a = cands[None, :, None]
+                g_a = gv[:, None, :] + a * Jd[:, None, :] \
+                    + (a * a) * qd[:, None, :]
+                f_a = fx[:, None] + cands[None, :] * df[:, None]
+            else:
+                X = x[:, None, :] + cands[None, :, None] * dx[:, None, :]
+                g_a = evals["g_along"](X)
+                f_a = evals["f_along"](X)
+            mvals = f_a + penalty_term(g_a, lam[:, None, :], rho, lb, ub)
             ok = torch.isfinite(mvals) & (
                 mvals <= m0[:, None]
                 + opt.armijo * cands[None, :] * slope[:, None])
@@ -246,16 +441,17 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             return x + alpha[:, None] * dx, grad_.abs().amax(-1)
 
     def solve(x0, p, lb, ub, state0: Optional[ALMState] = None,
-              outer_iter: Optional[int] = None, ct=None, fshared=None):
+              outer_iter: Optional[int] = None, cA=None, Q=None, ct=None,
+              fshared=None):
         if fshared is not None and fused_plan is None:
             raise ValueError("fshared needs a solver built with fused_plan")
-        if fshared is None and ct is None:
+        if compact is not None and fshared is None and ct is None:
             raise ValueError("the compact solver needs the resolved "
                              "tensors ct (ops.compact.resolve_phase) or the "
                              "fused kernel's fshared")
         dtype, device = x0.dtype, x0.device
         B = x0.shape[0]
-        lb, ub = _scale_rt(lb, ub, dtype, device)
+        lb, ub = scale_bounds(lb, ub, dtype, device)
         inv_d = consts(dtype, device)[1]
         inf = torch.full((B,), float("inf"), dtype=dtype, device=device)
         zeros_i = torch.zeros((B,), dtype=torch.int32, device=device)
@@ -269,17 +465,19 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             state = state0._replace(x=x0, feas=inf, stat=inf,
                                     n_iter=zeros_i, feas_raw=inf)
         n_outer = opt.outer_iter if outer_iter is None else outer_iter
+        evals = None
         if fshared is not None:
-            work = None
             pv = p[:, consts(dtype, device)[4]]
+        elif ct is not None:
+            evals = make_evals_compact(ct)
         else:
-            work = CompactWork(compact, ct)
+            evals = make_evals(p, dtype, device, cA=cA, Q=Q)
         # dtype-aware feasibility floor: in f32 the configured tolerance
         # sits below the roundoff of the scaled constraint evaluation
         feas_tol = max(opt.feas_tol, 1000.0 * torch.finfo(dtype).eps)
 
         def outer_body(st):
-            if work is None:
+            if evals is None:
                 with record_function("alm.fused_inner"):
                     x_n, gv, stat = fused_inner(
                         fused_plan, fshared, st.x, st.lam, st.rho, pv, lb,
@@ -288,11 +486,11 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 x_n = st.x
                 stat = inf
                 for _ in range(opt.inner_iter):
-                    x_n, stat = inner_step(work, x_n, st.lam, st.rho, lb,
+                    x_n, stat = inner_step(evals, x_n, st.lam, st.rho, lb,
                                            ub)
             with record_function("alm.outer_update"):
-                if work is not None:
-                    gv = work.g(x_n)
+                if evals is not None:
+                    gv = evals["g"](x_n)
                 y_hat = multiplier_estimate(gv, st.lam, st.rho, lb, ub)
                 viol_rows = torch.clamp(lb - gv, min=0.0) \
                     + torch.clamp(gv - ub, min=0.0)
@@ -324,6 +522,31 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             active = active_lanes(state)
         return state
 
+    def diagnose(st: ALMState, p, lb, ub):
+        """Per lane: the scaled violation, the stationarity residual
+        |grad f + J'y|_inf (both by AD at st.x, in the transcription's row
+        order), rho and the violation of every row, as numpy arrays."""
+        x = st.x
+        lb, ub = scale_bounds(lb, ub, x.dtype, x.device, permute=False)
+        lam = st.lam
+        if row_perm is not None:
+            # a compact solver's multipliers are in its permuted row order
+            lam = torch.empty_like(st.lam)
+            lam[:, consts(x.dtype, x.device)[2]] = st.lam
+        gv = vmap(g)(x, p)
+        y_hat = multiplier_estimate(gv, lam, st.rho, lb, ub)
+        grad_ = vmap(grad_f)(x, p) + (vmap(jac_g)(x, p).transpose(1, 2)
+                                      @ y_hat[:, :, None])[:, :, 0]
+        viol = torch.clamp(lb - gv, min=0.0) + torch.clamp(gv - ub, min=0.0)
+        return {"feas": viol.amax(-1).cpu().numpy(),
+                "stat": grad_.abs().amax(-1).cpu().numpy(),
+                "rho": st.rho.cpu().numpy(),
+                "row_viol": viol.cpu().numpy()}
+
     solve.options = opt
-    solve.scale_bounds = _scale_rt
+    solve.scale_bounds = scale_bounds
+    solve.diagnose = diagnose
+    # the SCALED quadratic tensor (numpy), for callers that keep one copy
+    # on the device and pass it back as solve's Q argument
+    solve.Q_scaled = Qs_np
     return solve

@@ -15,8 +15,9 @@ compacts the structure once at setup (host, float64 numpy):
 - :func:`detect_arrow` finds the block-arrow partition (head = vehicle
   splines, pairwise-uncoupled tail blocks) the Newton step factors by.
 
-At run time :class:`CompactWork` evaluates J, g, the block-arrow
-Gauss-Newton system and the line-search terms family by family.  Unlike
+At run time :class:`CompactWork` evaluates J, g, the gradient, the
+Gauss-Newton system (dense, or block-arrow) and the line-search terms
+family by family.  Unlike
 the JAX module (written per scenario and lifted by ``vmap``), every runtime
 method here takes tensors with an explicit leading batch axis B.
 """
@@ -425,6 +426,38 @@ class CompactWork:
 
     def gf(self, x):
         return self.ct["gf"]
+
+    def grad(self, Jf, y):
+        """gf + J'y (B, n) by per-family slice adds."""
+        out = self.ct["gf"].expand(Jf[0].shape[0], -1).clone()
+        for fam, J in zip(self.struct.families, Jf):
+            gfam = (J.transpose(1, 2) @ self._rows(y, fam)[:, :, None])[
+                :, :, 0]                                 # (B, n_f)
+            off = 0
+            for (s, sz) in fam.runs:
+                out[:, s:s + sz] += gfam[:, off:off + sz]
+                off += sz
+        return out
+
+    def hessian(self, Jf, active, rho, ridge):
+        """rho J'DJ + ridge I (B, n, n) by family-block slice adds (the
+        compact mode without an arrow partition)."""
+        n = self.struct.n_x
+        J0 = Jf[0]
+        H = ridge * torch.eye(n, dtype=J0.dtype, device=J0.device).expand(
+            J0.shape[0], n, n).clone()
+        for fam, J in zip(self.struct.families, Jf):
+            d = self._rows(active, fam) * rho[:, None]
+            Hf = J.transpose(1, 2) @ (d[:, :, None] * J)    # (B, n_f, n_f)
+            oa = 0
+            for (sa, sza) in fam.runs:
+                ob = 0
+                for (sb, szb) in fam.runs:
+                    H[:, sa:sa + sza, sb:sb + szb] += \
+                        Hf[:, oa:oa + sza, ob:ob + szb]
+                    ob += szb
+                oa += sza
+        return H
 
     def arrow_system(self, Jf, y, active, rho):
         """Assemble the block-arrow Gauss-Newton system in block form:

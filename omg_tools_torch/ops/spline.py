@@ -77,7 +77,8 @@ class BSpline:
         """Evaluate at static numpy points (returns (..., len(x))) or at a
         tensor scalar (returns (...,))."""
         if isinstance(x, torch.Tensor):
-            bvals = eval_basis_traced(self.basis, x.to(self.coeffs.dtype))
+            bvals = eval_basis_traced(self.basis, x.to(
+                dtype=self.coeffs.dtype, device=self.coeffs.device))
             return torch.einsum("...i,i->...", self.coeffs, bvals)
         x_arr = np.atleast_1d(np.asarray(x, dtype=np.float64))
         E = _const(self.basis.eval(x_arr), self.coeffs)   # (len(x), n)
@@ -146,9 +147,10 @@ class BSpline:
 
 
 def evalspline(s: BSpline, t):
-    """Evaluate a spline at a tensor scalar t."""
-    bvals = eval_basis_traced(s.basis,
-                              _as_tensor(t).to(s.coeffs.dtype))
+    """Evaluate a spline at a scalar t (a number or a tensor scalar), on
+    the coefficients' device."""
+    bvals = eval_basis_traced(s.basis, _as_tensor(t).to(
+        dtype=s.coeffs.dtype, device=s.coeffs.device))
     return torch.einsum("...i,...i->...", s.coeffs,
                         torch.broadcast_to(bvals, s.coeffs.shape))
 

@@ -7,14 +7,15 @@ prediction), the ALM solve and the ideal plant update all run on the
 runner's device with an explicit batch axis.  The host precomputation --
 AD for row scaling, quadratic detection and the per-phase affine tensors,
 then the family compaction and the arrow partition -- runs once in float64
-on the CPU; its tensors then move to the device.
+on the CPU and is cached on disk (``utils.cache``, keyed on the problem's
+fingerprint, ``runner._cache_key``); its tensors then move to the device.
 
 Scope: FixedT Point2point problems with a Holonomic vehicle, obstacles with
 constant-acceleration motion, ideal plant update, the ``compact-arrow``
 solver structure and, in float32, ``compact-arrow-fused`` (every inner
 iteration of an outer round in one launch of the fused kernel K3,
-``ops/fused_alm.py``).  The structure caches and the dense/generic
-structures are not ported yet.
+``ops/fused_alm.py``).  The dense and generic batched structures are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..ops.alm import ALMState, ALMOptions, make_alm_solver, \
     detect_quadratic_structure
 from ..ops.compact import build_compact, detect_arrow, resolve_phase
 from ..ops.fused_alm import FusedPlan
+from ..utils import cache as _cache
 from .rollout_models import make_rollout_model
 
 __all__ = ["BatchedP2PRunner", "CompactConsts", "resolve_device"]
@@ -88,15 +90,25 @@ class BatchedP2PRunner:
         tr = problem.transcription
         self.tr = tr
         p_base = problem.pack_parameters(0.0)
-        frozen = []
-        try:
-            slT, _ = tr.par_slice(problem, "T")
-            frozen = list(range(slT.start, slT.stop))
-        except KeyError:
-            pass
-        Q = detect_quadratic_structure(tr.constraints, tr.n_x,
-                                       torch.as_tensor(p_base),
-                                       f=tr.objective, frozen_idx=frozen)
+        self._cache_key = getattr(tr, "fingerprint", None) or \
+            _cache.problem_fingerprint(tr, p_base)
+        hit = _cache.load_tensors(self._cache_key, "quadQ")
+        if hit is not None:
+            Q = hit["Q"] if hit["has_Q"] else None
+        else:
+            frozen = []
+            try:
+                slT, _ = tr.par_slice(problem, "T")
+                frozen = list(range(slT.start, slT.stop))
+            except KeyError:
+                pass
+            Q = detect_quadratic_structure(tr.constraints, tr.n_x,
+                                           torch.as_tensor(p_base),
+                                           f=tr.objective, frozen_idx=frozen)
+            _cache.store_tensors(
+                self._cache_key, "quadQ",
+                {"has_Q": np.asarray(Q is not None),
+                 "Q": np.zeros((0,)) if Q is None else np.asarray(Q)})
         self._Q_raw = None if Q is None else np.asarray(Q)
         structure = "quadratic" if Q is not None else "generic"
         vehicle = problem.vehicles[0]
@@ -261,6 +273,23 @@ class BatchedP2PRunner:
         return np.unique(np.concatenate(varying))
 
     def _build_affine_cA(self):
+        """Per-phase c0/C1/A0/TA/f0/gf over the varying parameter columns,
+        from the cache or by host AD."""
+        names = ("c0", "C1", "A0", "TA", "f0", "gf", "vsel")
+        hit = _cache.load_tensors(self._cache_key, "affine_v")
+        if hit is None:
+            self._affine_host_ad()
+            arrays = {"ok": np.asarray(self.affine_cA)}
+            if self.affine_cA:
+                arrays.update(self._affine_np)
+            _cache.store_tensors(self._cache_key, "affine_v", arrays)
+            return
+        self.affine_cA = bool(hit["ok"])
+        self._affine_np = None
+        if self.affine_cA:
+            self._affine_np = {k: hit[k] for k in names}
+
+    def _affine_host_ad(self):
         """Per-phase c0/C1/A0/TA/f0/gf by host AD (float64, CPU) over the
         varying parameter columns, with an affineness check per phase."""
         tr = self.tr
@@ -323,7 +352,6 @@ class BatchedP2PRunner:
         self.affine_cA = ok
         self._affine_np = None
         if ok:
-            self._vsel = varying
             self._affine_np = {"c0": np.stack(c0s), "C1": np.stack(C1s),
                                "A0": np.stack(A0s), "TA": np.stack(TAs),
                                "f0": np.asarray(f0s), "gf": np.stack(gfs),

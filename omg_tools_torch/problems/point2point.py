@@ -2,10 +2,10 @@
 ``omg_tools_tpu.problems.point2point``): horizon_time parameter, soft-L1
 terminal constraint via slack splines g_k with objective
 integral(g, t0, 1), hard terminal derivative constraints at tau = 1, and
-the warm-start shift over knot passage.
+the warm-start shift over knot passage, and the closed loop's host
+methods (trajectory storage, plant simulation, objective bookkeeping).
 
-Not ported yet: the free-time and free-end-point problems, and the host
-deployment methods (store, simulate, objective bookkeeping).
+Not ported yet: the free-time and free-end-point problems.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 
 from .problem import Problem
 from ..modeling.opti import BIG
-from ..ops.spline import evalspline, definite_integral
+from ..ops.spline import BSpline, evalspline, definite_integral
 
 __all__ = ["Point2point", "Point2pointProblem", "FixedTPoint2point"]
 
@@ -66,11 +66,38 @@ class Point2pointProblem(Problem):
     def horizon_value(self):
         return 10.0
 
+    # -- lifecycle ---------------------------------------------------------
+    def initialize(self, current_time):
+        self.start_time = current_time
+
+    def set_init_time(self, time):
+        self.init_time = time
+
+    def reset_init_time(self):
+        self.init_time = None
+
+    def stop_criterium(self, current_time, update_time):
+        return all(v.check_terminal_conditions() for v in self.vehicles)
+
+    def final(self):
+        self.reset_init_time()
+        obj = self.compute_objective()
+        if self.options["verbose"] >= 1:
+            print("\nWe reached our target!")
+            print("%-18s %6g" % ("Objective:", obj))
+            if self.update_times:
+                print("%-18s %6g ms" % ("Max update time:",
+                                        max(self.update_times) * 1000.0))
+                print("%-18s %6g ms" % (
+                    "Av update time:",
+                    sum(self.update_times) * 1000.0 / len(self.update_times)))
+
 
 class FixedTPoint2point(Point2pointProblem):
 
     def __init__(self, fleet, environment, options):
         Point2pointProblem.__init__(self, fleet, environment, options)
+        self.objective = 0.0
         if self.vehicles[0].knot_intervals is None:
             raise ValueError("fixed-T problems need constant knot intervals")
         self.knot_time = (int(self.options["horizon_time"] * 1000.0)
@@ -131,5 +158,81 @@ class FixedTPoint2point(Point2pointProblem):
             return float(np.round(current_time, 6) % self.knot_time)
         return float(self.init_time)
 
+    # -- warm-start shift over knot passage -------------------------------
+    def _knot_index(self, t):
+        return int(np.round(t / self.knot_time, 6))
+
+    def init_step(self, current_time, update_time):
+        if not hasattr(self, "current_time_prev"):
+            self.current_time_prev = 0.0
+        # entering a new knot interval: re-express the warm start in the
+        # one-knot-advanced basis so the previous solution seeds the new
+        # horizon (shiftoverknot transform, precomputed per basis)
+        if self._knot_index(current_time) \
+                > self._knot_index(self.current_time_prev):
+            self.transform_primal_splines(self._primal_transform)
+        self.current_time_prev = current_time
+
     def init_primal_transform(self, basis):
         return basis.shiftoverknot_T()
+
+    def initialize(self, current_time):
+        Point2pointProblem.initialize(self, current_time)
+        self.current_time_prev = current_time
+
+    # -- deployment --------------------------------------------------------
+    def store(self, current_time, update_time, sample_time):
+        horizon_time = self.options["horizon_time"]
+        if self.init_time is None:
+            rel_current_time = np.round(current_time - self.start_time, 6) \
+                % self.knot_time
+        else:
+            rel_current_time = self.init_time
+        for vehicle in self.vehicles:
+            n_samp = int(round(
+                (horizon_time - rel_current_time) / sample_time, 6)) + 1
+            time_axis = np.linspace(
+                rel_current_time,
+                rel_current_time + (n_samp - 1) * sample_time, n_samp)
+            segments = [self.get_variables(vehicle, f"splines_seg{k}")
+                        for k in range(vehicle.n_seg)]
+            vehicle.store(current_time, sample_time, segments, horizon_time,
+                          time_axis)
+
+    def simulate(self, current_time, simulation_time, sample_time):
+        horizon_time = self.options["horizon_time"]
+        if self.init_time is None:
+            rel_current_time = np.round(current_time - self.start_time, 6) \
+                % self.knot_time
+        else:
+            rel_current_time = self.init_time
+        if horizon_time - rel_current_time < simulation_time:
+            simulation_time = horizon_time - rel_current_time
+        self.compute_partial_objective(current_time, simulation_time)
+        Problem.simulate(self, current_time, simulation_time, sample_time)
+
+    def compute_partial_objective(self, current_time, update_time):
+        rel_current_time = np.round(current_time - self.start_time, 6) \
+            % self.knot_time
+        horizon_time = self.options["horizon_time"]
+        t0 = rel_current_time / horizon_time
+        t1 = t0 + update_time / horizon_time
+        part = 0.0
+        for v, vehicle in enumerate(self.vehicles):
+            for k in range(self.term_con_len[v]):
+                g_cfs = self.get_variables(self, f"g{k}")[:, 0]
+                g = BSpline(self._term_g_bases[v][k], g_cfs)
+                part += horizon_time * float(definite_integral(
+                    g, float(t0), float(t1)))
+        self.objective += part
+
+    def compute_objective(self):
+        if self.objective == 0.0:
+            obj = 0.0
+            for v, vehicle in enumerate(self.vehicles):
+                for k in range(self.term_con_len[v]):
+                    g_cfs = self.get_variables(self, f"g{k}")[:, 0]
+                    g = BSpline(self._term_g_bases[v][k], g_cfs)
+                    obj += self.options["horizon_time"] * float(g.integral())
+            return obj
+        return self.objective

@@ -28,8 +28,6 @@ import omg_tools_torch as T
 from omg_tools_torch.ops import fused_alm as fa
 from omg_tools_torch.ops.compact import resolve_phase
 
-pytestmark = pytest.mark.fast
-
 B = 4
 N_STEPS = 11        # covers the knot-passage (hard budget) step at k = 10
 ROLLOUT = dict(outer_iter=2, rescue_lanes=2, rescue_outer=6,
@@ -37,6 +35,16 @@ ROLLOUT = dict(outer_iter=2, rescue_lanes=2, rescue_outer=6,
 HOST_RTOL = 1e-10
 INNER = 2
 OUTER = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These eager solves are small: torch's intra-op threads only spin
+    beside the other test processes.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _build_problem(m):

@@ -2,6 +2,7 @@
 and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -19,6 +20,9 @@ pytestmark = pytest.mark.fast
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "omg_tools_torch"
 BANNED = ("jax", "jaxlib", "omg_tools_tpu")
+# the port's other programs: the example copies and the card's smoke run
+PROGRAMS = sorted((ROOT / "examples_torch").glob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
 
 # runs in a fresh interpreter: any import of a banned package raises
 _CHILD = r"""
@@ -71,6 +75,49 @@ def test_no_jax_import_in_source(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in BANNED]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PROGRAMS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_the_port_programs(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path} imports {bad}"
+
+
+# the closed loop as on the card's machine, which has neither JAX nor
+# matplotlib: any import of those raises
+_CLOSED_LOOP = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("the closed loop imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+from omg_tools_torch.tools.parity import build_p2p_holonomic
+problem = build_p2p_holonomic(
+    solver_options={"outer_iter": 1, "inner_iter": 2},
+    options={"device": "cpu"})
+simulator = T.Simulator(problem)
+for _ in range(2):
+    simulator.update()
+assert problem.vehicles[0].signals["state"].shape == (2, 21)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_closed_loop_runs_without_matplotlib_or_jax():
+    banned = BANNED + ("matplotlib",)
+    out = subprocess.run([sys.executable, "-c", _CLOSED_LOOP % (banned,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
 
 
 def test_default_device_needs_cuda(monkeypatch):

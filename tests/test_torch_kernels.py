@@ -355,3 +355,37 @@ def test_cuda_entry_point_refuses_what_does_not_fit(cuda_device):
         torch.cuda.synchronize()
         assert err == 1, (dtype, n, r, N, var, err)
         assert bool((X == 7.0).all()), (dtype, n, r, N, var)
+
+
+@pytest.mark.gpu
+def test_cuda_problem_solve_matches_cpu(cuda_device):
+    """Problem.solve on the card in float64 (a batch of one: K1's block
+    variant at n = 151) against the port on the CPU, on bench.py's scene in
+    the dense quadratic mode: the cold solve's first 11 Newton iterations
+    (the solve amplifies rounding from its twelfth on, see
+    tests/test_torch_closed_loop.py) within 1e-8, with K1 launched."""
+    from omg_tools_torch.tools.parity import build_p2p_holonomic
+    assert pk.variant(151, 1, torch.float64) == "block"
+    states = {}
+    for dev in ("cpu", cuda_device):
+        problem = build_p2p_holonomic(
+            solver_options={"outer_iter": 1, "inner_iter": 11},
+            options={"device": dev, "exploit_structure": True})
+        assert problem._structure == "quadratic"
+        problem.initialize(0.0)
+        problem.predict(0.0, 0.1, 0.01)
+        solver, calls = problem._solver, []
+
+        def record(*args, **kwargs):
+            calls.append(solver(*args, **kwargs))
+            return calls[-1]
+        problem._solver = record
+        before = pk.psd_solve.launches
+        problem.solve(0.0, 0.1)
+        launches = pk.psd_solve.launches - before
+        states[str(dev)] = calls[0]
+    assert launches >= 11, launches
+    got, want = states[str(cuda_device)], states["cpu"]
+    assert got.x.is_cuda and got.x.dtype == torch.float64
+    np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(), rtol=0,
+                               atol=1e-8)

@@ -15,6 +15,7 @@ rollouts agree to the tolerances of tests/test_fused_alm.py (x 1e-8,
 feasibility 1e-9) and to 1e-8 m per rollout state.
 """
 
+import copy
 import os
 import re
 
@@ -26,6 +27,8 @@ import torch
 
 import omg_tools_tpu as J
 from omg_tools_tpu.ops.alm import ALMOptions as JALMOptions
+from omg_tools_tpu.ops.alm import make_alm_solver as j_make_alm_solver
+from omg_tools_tpu.ops.compact import resolve_phase as j_resolve_phase
 from omg_tools_tpu.problems.batch import BatchedP2PRunner as JRunner
 
 import omg_tools_torch as T
@@ -34,13 +37,21 @@ from omg_tools_torch.interop import (batch_from_numpy, compact_from_numpy,
 from omg_tools_torch.ops.alm import make_alm_solver
 from omg_tools_torch.ops.compact import resolve_phase
 
-pytestmark = pytest.mark.fast
-
 B = 4
 N_STEPS = 11        # covers the knot-passage (hard budget) step at k = 10
 ROLLOUT = dict(outer_iter=2, rescue_lanes=2, rescue_outer=6,
                recover_tol=0.01, budgets=((3, 8), (1, 7)))
 HOST_RTOL = 1e-10
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These eager solves are small: torch's intra-op threads only spin
+    beside the other test processes.  One thread for this module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _build_problem(m):
@@ -264,3 +275,32 @@ def test_rollout_from_jax_state(pair, jax_run):
                                     jax_run["state"], device="cpu")
     _, states = tr.rollout_fn(N_STEPS, **ROLLOUT)(st, p0, state)
     np.testing.assert_allclose(states.numpy(), jax_run["states"], atol=1e-8)
+
+
+def test_compact_without_arrow_cold_solve(pair, jax_run):
+    """The compact mode without an arrow partition (the dense compact
+    Gauss-Newton system through psd_solve): the cold solve of the B
+    scenarios against the JAX package's on the same compact structure."""
+    jp, jr, tp, tr = pair
+    jc, tc = copy.copy(jr.compact), copy.copy(tr.compact)
+    jc.arrow = tc.arrow = None
+    opt = dict(inner_iter=5)
+    args = dict(row_scale=jp._row_scale, obj_scale=jp._obj_scale)
+    ja, ta = jp.transcription, tp.transcription
+    js = j_make_alm_solver(ja.objective, ja.constraints, ja.n_x, ja.lb,
+                           ja.ub, JALMOptions(**opt), compact=jc, **args)
+    ts = make_alm_solver(ta.objective, ta.constraints, ta.n_x, ta.lb, ta.ub,
+                         T.ALMOptions(**opt), compact=tc, **args)
+    lb, ub = ja.bounds(0.0)
+    dt = jc.device_tensors(jnp.float64)
+    want = jax.jit(jax.vmap(lambda x, p: js(
+        x, p, lb, ub, ct=j_resolve_phase(jc, dt, 0, p))))(
+            jnp.asarray(jax_run["x0"]), jnp.asarray(jax_run["p0"]))
+    x0, p0, _ = batch_from_numpy(jax_run["x0"], jax_run["p0"],
+                                 jax_run["state"], device="cpu")
+    ct = resolve_phase(tc, tc.device_tensors(torch.float64, "cpu"), 0, p0)
+    st = ts(x0, p0, np.asarray(lb), np.asarray(ub), ct=ct)
+    np.testing.assert_allclose(st.x.numpy(), np.asarray(want.x), atol=1e-8)
+    np.testing.assert_allclose(st.feas.numpy(), np.asarray(want.feas),
+                               atol=1e-9)
+    np.testing.assert_array_equal(st.n_iter.numpy(), np.asarray(want.n_iter))
