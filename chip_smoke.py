@@ -66,12 +66,24 @@ Phases, in order; any failure raises and exits non-zero:
     (float64, one 151-row system a launch) must run in every update; then
     ``examples_torch/p2p_holonomic.py`` in smoke mode in a process of its
     own;
-13. times: the device time of K1 and K2 at every shape of 3 (``device_ms``:
-    the profiler's self CUDA time of the kernel's own name over 20
-    launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
-    kernels on the same inputs, K3's at both shapes of 6, and K1's in
-    float64 at the closed loop's shape (1 x 151); taken last, so that no
-    profiler session but 9's precedes the timed runs.
+13. the other bench configurations, ``p2p_3dquadrotor`` and ``p2p_dubins``
+    (bench.py:233-345), each on an empty host-tensor cache of its own:
+    setup (the float32 runner must take ``compact-arrow-fused``; its
+    plan's sizes, K3's shared bytes a lane and lanes a block), K3 against
+    its plain version on that plan with the three checks of 6, the
+    clock-profiled launch held bit for bit to the unprofiled one and the
+    curvature check (``k3_curvature_check``: on a state where the line
+    search's d'Q d term decides some lanes' step, the kernel must match
+    the plain version on the lanes float32 resolves, where a plain
+    version without that term does not), the B = 4096, 20-step rollout at
+    bench.py's settings for the configuration (K3 only), 3 compact-arrow
+    steps (K1 and K2), and the cross-check of 11 on 16 lanes;
+14. times: the device time of K1 and K2 at every shape of 3 and 13
+    (``device_ms``: the profiler's self CUDA time of the kernel's own name
+    over 20 launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
+    kernels on the same inputs, K3's at both shapes of 6 and of each plan
+    of 13, and K1's in float64 at the closed loop's shape (1 x 151); taken
+    last, so that no profiler session but 9's precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
@@ -173,6 +185,46 @@ K1_F64_NAME = "K1 chol_solve r=1 (psd_solve) float64, Problem.solve"
 K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
 K1_F64_SHAPE = (1, 151, 1)
 
+# bench.py's other single-vehicle configurations (bench.py:233-345) at
+# bench.py's settings for each: budgets, rescue, recovery metric and
+# tolerances (bench.py:291-302, 325-335); the K3 shapes are the hard
+# budget's inner iterations at B and the rescue's lanes at INNER_ITER.
+# Diverged lanes are counted as bench.py:465-467 counts them: the scaled
+# violation above recover_tol for the scaled metric, raw above 1e-2
+# otherwise.  The feasibility gate (feas_p99 < 1e-3, no diverged lane)
+# holds for the quadrotor (the JAX package met it on its chip); Dubins'
+# float32 tail sat at 1.39e-3 in the JAX package's own sweep
+# (bench.py:295-297), so there only finite values are gated.  K3's checks
+# on the Dubins plan start 1e-3 off make_batch's start, where rows sit
+# exactly on their bounds (tests/torch_bench_configs.py): there the plain
+# version's float32 step leaves its float64 step by 2.1e-2 of its size at
+# the main shape, as far as the kernel leaves the plain version (2.2e-2;
+# the ``at_make_batch_start`` of its kernel_check line, NVIDIA H100 80GB
+# HBM3, 700.00 W).  From the moved start a few lanes still switch
+# activity on a float32 tie (the kernel's step error 2.6e-4 at p99 and
+# 6.2e-2 at most), so the first check gates its p99 over lanes there.
+CONFIGS = {
+    "p2p_3dquadrotor": dict(
+        start=[-1.5, -1.5, -1.5], goal=[2.0, 2.0, 1.5],
+        rollout=dict(outer_iter=2, rescue_lanes=128, rescue_outer=6,
+                     recover_tol=5e-3, recover_metric="scaled",
+                     rescue_tol=5e-4, streak_tol=1e-3,
+                     budgets=((3, 8), (1, 7))),
+        feas_gate=True),
+    "p2p_dubins": dict(
+        start=[-1.5, -1.5], goal=[2.0, 2.0],
+        rollout=dict(outer_iter=2, rescue_lanes=256, rescue_outer=8,
+                     recover_tol=0.01, recover_metric="raw",
+                     budgets=((4, 10), (2, 8))),
+        feas_gate=False, k3_start_noise=1e-3, k3_well_quantile=0.99),
+}
+CONFIG_CROSS_LANES = 16
+K3_CURV_WARM = 3          # curvature check: plain iterations to its state
+K3_CURV_INNER = 2         # ... and the iterations it compares
+K3_CURV_RESOLVED = 1e-3   # lanes whose plain f32 step is within this of f64
+K3_CURV_RATIO = 0.25      # the kernel's lanes off the plain version's step,
+                          # at most this share of the blind mutant's
+
 
 def check(cond, msg):
     if not cond:
@@ -194,7 +246,11 @@ def device_ms(fn, name=None, reps=DEVICE_REPS, warmup=3):
     kernel's mean time a launch counts as often as the kernel runs a call
     (its launches over ``reps``, rounded, at least once), so that a launch
     the profiler failed to record does not lower the figure.  Returns (ms,
-    {kernel name: launches recorded})."""
+    {kernel name: launches recorded}).  Where three profiler sessions
+    record no kernel (as happened after a long run on the card), the time
+    is taken by CUDA events around the ``reps`` calls instead (host time
+    between launches included, so an upper bound), and the names are
+    None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,10 +273,19 @@ def device_ms(fn, name=None, reps=DEVICE_REPS, warmup=3):
                     * max(1, round(e.count / reps))
                 names[e.key[:90]] = e.count
         if us > 0:
-            break
-    check(us > 0, f"no device time recorded for {name or 'the call'}: "
-          f"{[e.key[:60] for e in prof.key_averages()]}")
-    return us / 1e3, names
+            return us / 1e3, names
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / reps
+    print("device_ms_by_events " + json.dumps(
+        {"kernel": name, "ms": ms, "profiler_saw": sorted(
+            e.key[:60] for e in prof.key_averages())[:8]}), flush=True)
+    return ms, None
 
 
 def ptxas_report(log):
@@ -312,16 +377,16 @@ def spd_inputs(N, n, r, seed, device, dtype=None):
 def _chol_call(pk, entry, H, G):
     """(kernel wrapper, plain version, arguments) of one K1/K2 call; K2
     takes the arrow step's layout, (B, k, b, b) blocks with (B, k, b, r)
-    panels, k = 5 where N allows it."""
+    panels, k = 5 or 4 where N allows it."""
     N, n, r = G.shape
     if entry == "psd_solve":
         return pk.psd_solve, pk.psd_solve_plain, (H, G[..., 0].contiguous())
-    k = 5 if N % 5 == 0 else 1
+    k = next(k for k in (5, 4, 1) if N % k == 0)
     return (pk.psd_solve_multi, pk.psd_solve_multi_plain,
             (H.reshape(N // k, k, n, n), G.reshape(N // k, k, n, r)))
 
 
-def kernel_phase(device, timed=True):
+def kernel_phase(device, timed=True, kernels=KERNELS):
     """K1 and K2 against their plain versions at each shape of
     ``KERNELS``, in float32 and, at the main shapes, in float64; prints one
     ``kernel_check`` line per check and returns one record per kernel
@@ -342,7 +407,7 @@ def kernel_phase(device, timed=True):
     # with the same yardstick: ``--kernels-only`` run from its root
     variant = getattr(pk, "variant", None)
     records = []
-    for name, entry, replaces, shapes in KERNELS:
+    for name, entry, replaces, shapes in kernels:
         rec = None
         for tag, (N, n, r) in shapes:
             H, G = spd_inputs(N, n, r, seed=N + n + r, device=device)
@@ -370,7 +435,8 @@ def kernel_phase(device, timed=True):
             names, library_kernels = {}, {}
             if timed:
                 ms, names = device_ms(lambda: kern(*args), CHOL_KERNEL)
-                check(len(names) == 1 and sum(names.values()) <= DEVICE_REPS,
+                check(names is None or (len(names) == 1 and sum(
+                    names.values()) <= DEVICE_REPS),
                       f"{name} {tag}: {names} launched, not one kernel a "
                       "call")
                 library_ms, library_kernels = device_ms(library)
@@ -383,11 +449,13 @@ def kernel_phase(device, timed=True):
             t_ops = flops / PEAK_F32_FLOPS * 1e3
             line = {"name": name, "shape": tag, "N": N, "n": n, "r": r,
                     "dtype": "float32", "variant": var,
-                    "kernel": sorted(names), "max_abs_err": err,
+                    "kernel": None if names is None else sorted(names),
+                    "max_abs_err": err,
                     "scale": scale, "library_err": lib_err, "ms": ms,
                     "call_ms": call_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms,
-                    "library_kernels": len(library_kernels),
+                    "library_kernels": None if library_kernels is None
+                    else len(library_kernels),
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
@@ -465,39 +533,63 @@ def k1_f64_record(device, launches, per_update):
             "launches_per_update": per_update}
 
 
-def build_problem(T):
-    vehicle = T.Holonomic()
-    vehicle.set_initial_conditions([-1.5, -1.5])
-    vehicle.set_terminal_conditions([2.0, 2.0])
-    environment = T.Environment(room={"shape": T.Square(5.0)})
-    environment.add_obstacle(T.Obstacle(
-        {"position": [-2.1, -0.5]}, shape=T.Rectangle(width=3.0, height=0.2)))
-    environment.add_obstacle(T.Obstacle(
-        {"position": [1.7, -0.5]}, shape=T.Rectangle(width=3.0, height=0.2)))
-    environment.add_obstacle(T.Obstacle(
-        {"position": [1.5, 0.5]}, shape=T.Circle(0.4)))
+def build_problem(T, config="p2p_holonomic"):
+    """bench.py's scene of ``config``, letter for letter
+    (bench.py:233-277)."""
+    if config == "p2p_dubins":
+        vehicle = T.Dubins(shapes=T.Circle(0.1),
+                           options={"substitution": True},
+                           bounds={"vmax": 0.7, "wmax": np.pi / 3.0,
+                                   "wmin": -np.pi / 3.0})
+        vehicle.set_initial_conditions([-1.5, -1.5, 0.0])
+        vehicle.set_terminal_conditions([2.0, 2.0, 0.0])
+        environment = T.Environment(room={"shape": T.Square(5.0)})
+        environment.add_obstacle(T.Obstacle(
+            {"position": [0.5, 0.2]}, shape=T.Circle(0.4)))
+    elif config == "p2p_3dquadrotor":
+        vehicle = T.SimpleQuadrotor3D()
+        vehicle.set_initial_conditions([-1.5, -1.5, -1.5])
+        vehicle.set_terminal_conditions([2.0, 2.0, 1.5])
+        environment = T.Environment(room={"shape": T.Cube(5.0)})
+        environment.add_obstacle(T.Obstacle(
+            {"position": [0.2, 0.2, 0.0]}, shape=T.Sphere(0.5)))
+    else:
+        vehicle = T.Holonomic()
+        vehicle.set_initial_conditions([-1.5, -1.5])
+        vehicle.set_terminal_conditions([2.0, 2.0])
+        environment = T.Environment(room={"shape": T.Square(5.0)})
+        environment.add_obstacle(T.Obstacle(
+            {"position": [-2.1, -0.5]},
+            shape=T.Rectangle(width=3.0, height=0.2)))
+        environment.add_obstacle(T.Obstacle(
+            {"position": [1.7, -0.5]},
+            shape=T.Rectangle(width=3.0, height=0.2)))
+        environment.add_obstacle(T.Obstacle(
+            {"position": [1.5, 0.5]}, shape=T.Circle(0.4)))
     problem = T.Point2point(vehicle, environment, freeT=False)
     problem.set_options({"verbose": 0})
     problem.init()
     return problem
 
 
-def scenarios(B):
-    """bench.py's randomized starts/goals (numpy seed 0)."""
+def scenarios(B, config="p2p_holonomic"):
+    """bench.py's randomized starts/goals (numpy seed 0,
+    bench.py:337-345)."""
+    c = CONFIGS.get(config, dict(start=[-1.5, -1.5], goal=[2.0, 2.0]))
     rng = np.random.default_rng(0)
-    starts = np.tile([-1.5, -1.5], (B, 1)) + rng.uniform(-0.3, 0.3, (B, 2))
-    goals = np.tile([2.0, 2.0], (B, 1)) + rng.uniform(-0.3, 0.3, (B, 2))
+    dim = len(c["start"])
+    starts = np.tile(c["start"], (B, 1)) + rng.uniform(-0.3, 0.3, (B, dim))
+    goals = np.tile(c["goal"], (B, 1)) + rng.uniform(-0.3, 0.3, (B, dim))
     return starts, goals
 
 
-def planned_state(runner, x):
-    """One-period-ahead planned position (B, 2) commanded by solutions x."""
-    import torch
+def planned_state(runner, x, p):
+    """One-period-ahead planned position (B, n_dim) commanded by solutions
+    x at parameters p: the runner's plant update one period ahead."""
     s0 = int(runner.i_splines[0])
     n_coef, n_spl = runner.spline_shape
     cfs = x[:, s0:s0 + n_coef * n_spl].reshape(-1, n_coef, n_spl)
-    E1 = torch.as_tensor(runner.model.E0[1], dtype=x.dtype, device=x.device)
-    return torch.einsum("c,bcs->bs", E1, cfs)
+    return runner.model.update(p, cfs, 1, runner.horizon)[1]
 
 
 def launch_counts():
@@ -516,7 +608,7 @@ def zero_launch_counts():
     fa.fused_inner.launches = 0
 
 
-def setup_phase(T, device, B=BATCH):
+def setup_phase(T, device, B=BATCH, config="p2p_holonomic"):
     """The bench scene's float32 runner on ``device`` and B scenarios;
     ``setup_s`` is the problem's and the runner's build, the batch and the
     device tensors, and ``cache_hit`` says whether the host tensors came
@@ -524,21 +616,36 @@ def setup_phase(T, device, B=BATCH):
     import torch
     from omg_tools_torch.utils import cache
     t0 = time.time()
-    problem = build_problem(T)
+    problem = build_problem(T, config)
     cache_hit = cache.load_tensors(problem.transcription.fingerprint,
                                    "affine_v") is not None
     runner = T.BatchedP2PRunner(
         problem, dtype=torch.float32, device=device,
         alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
     check(runner.structure == "compact-arrow-fused",
-          f"structure {runner.structure}")
-    starts, goals = scenarios(B)
+          f"structure {runner.structure}: {runner.structure_reason}")
+    starts, goals = scenarios(B, config)
     x0, p0, state = runner.make_batch(starts, goals)
     consts = runner.consts()
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     print(f"setup: {setup_s:.3f} s, structure {runner.structure}, "
           f"cache_hit {cache_hit}", flush=True)
+    if config != "p2p_holonomic":
+        from omg_tools_torch.ops import fused_alm as fa
+        plan = runner.fused_plan
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        print("setup_config " + json.dumps({
+            "config": config, "setup_s": setup_s, "cache_hit": cache_hit,
+            "structure": runner.structure,
+            "structure_reason": runner.structure_reason,
+            "n_x": plan.n_x, "m": plan.m, "head": plan.head[1],
+            "tail_blocks": [sz for _, sz in plan.blocks],
+            "j_positions": plan.n_j, "values_per_phase": plan.values_len,
+            "desc_words": int(consts.FS["desc_host"].size),
+            "smem_bytes_one_lane": plan.smem_bytes(1),
+            "lanes_per_block": fa.lanes_per_block(B, n_sm, plan.smem_bytes)}),
+            flush=True)
     return runner, consts, starts, goals, x0, p0, state, setup_s, cache_hit
 
 
@@ -786,7 +893,8 @@ def _merit(x, gv, a, lb, ub, gf):
     return x.double() @ gf + 0.5 * rho * (viol * viol).sum(-1)
 
 
-def k3_kernel_phase(runner, consts, x0, p0):
+def k3_kernel_phase(runner, consts, x0, p0, shapes=K3_SHAPES,
+                    name=K3_NAME, start_noise=0.0, well_quantile=None):
     """Phase 6: K3 against its plain version at the main and rescue shapes
     on the main path's cold-solve inputs; returns the kernels-line record
     (main shape).  Three checks per shape:
@@ -802,7 +910,20 @@ def k3_kernel_phase(runner, consts, x0, p0):
       K3_MERIT_GATE of the float64 run's decrease from the start;
     - the same runs: p99 over lanes of max |x - x_f64|, the kernel's within
       10x the plain float32 version's (floor 1e-6 max |x|), and the kernel
-      finite wherever the plain float32 version is."""
+      finite wherever the plain float32 version is.
+
+    ``start_noise``: the checks start from x0 plus that much seeded
+    normal noise (Dubins: make_batch's start puts rows exactly on their
+    bounds, where float32 cannot resolve which rows are active; the
+    kernel against the plain version and the plain float32 version
+    against float64 at that start are printed beside, ungated).
+    ``well_quantile``: the first check gates that quantile over lanes of
+    the step and gradient-norm errors, not their max, and holds the
+    kernel's g to g at the kernel's own x, taken in float64 by the plain
+    version, at every lane (Dubins: on a few lanes in a thousand an
+    activity switch during the iterations is a tie within float32
+    rounding, so that the plain float32 version leaves the float64 one,
+    in its step and even more in g, as far as the kernel leaves it)."""
     import torch
     from omg_tools_torch.ops import fused_alm as fa
     plan = runner.fused_plan
@@ -821,13 +942,20 @@ def k3_kernel_phase(runner, consts, x0, p0):
               "values_per_phase": plan.values_len, "j_positions": plan.n_j,
               "arrow_floats": plan.arrow_len,
               "lane_bytes": 4 * plan.lane_floats(), "sms": n_sm}
+    degenerate = {}
+    if start_noise:
+        rng = np.random.default_rng(5)
+        x_given = x0
+        x0 = x0 + start_noise * torch.as_tensor(
+            rng.standard_normal(tuple(x0.shape)), dtype=x0.dtype,
+            device=dev)
     rec, timers = None, {}
-    for tag, B, n_inner in K3_SHAPES:
+    for tag, B, n_inner in shapes:
         B = min(B, x0.shape[0])
         lanes = fa.lanes_per_block(B, n_sm, plan.smem_bytes)
         smem = plan.smem_bytes(lanes)
         check(fa.kernel_smem_bytes(fs["desc_host"], lanes) == smem,
-              f"{K3_NAME} {tag}: the CUDA side lays out "
+              f"{name} {tag}: the CUDA side lays out "
               f"{fa.kernel_smem_bytes(fs['desc_host'], lanes)} shared bytes "
               f"for {lanes} lanes, FusedPlan {smem}")
         a = {"x": x0[:B].contiguous(), "pv": pv_all[:B].contiguous(),
@@ -853,16 +981,49 @@ def k3_kernel_phase(runner, consts, x0, p0):
         kw, pw = run(fa.fused_inner, well), run(fa.fused_inner_plain, well)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t).all()) for t in kw + pw),
-              f"{K3_NAME} {tag}: non-finite output, well-conditioned")
-        e_dx = float((kw[0] - pw[0]).abs().max()
-                     / (pw[0] - a["x"]).abs().max())
-        e_gv = float((kw[1] - pw[1]).abs().max() / pw[1].abs().max())
-        e_stat = float(((kw[2] - pw[2]).abs() / pw[2].abs()).max())
+              f"{name} {tag}: non-finite output, well-conditioned")
+        # per lane, over the largest step and |g|, and each lane's own
+        # gradient norm; gated at their max over lanes, or at the
+        # ``well_quantile`` quantile
+        per_lane = {
+            "step": (kw[0] - pw[0]).abs().amax(-1)
+            / (pw[0] - a["x"]).abs().max(),
+            "g": (kw[1] - pw[1]).abs().amax(-1) / pw[1].abs().max(),
+            "stat": (kw[2] - pw[2]).abs() / pw[2].abs()}
+        e_dx, e_gv, e_stat = (
+            float(e.max()) if well_quantile is None
+            else pct(e, well_quantile) for e in per_lane.values())
+        if well_quantile is not None:
+            # g: the kernel's against g at the kernel's own x in float64,
+            # at every lane
+            g_own = run(fa.fused_inner_plain,
+                        opt._replace(ls_candidates=(0.0,)), n=1,
+                        a={k: v.double() for k, v in
+                           dict(a, x=kw[0]).items()}, fs=fs64)[1]
+            e_gv = float((kw[1].double() - g_own).abs().max()
+                         / g_own.abs().max())
         well_line = {"step": e_dx, "g": e_gv, "stat": e_stat,
+                     "quantile": well_quantile,
+                     "max": {k: float(e.max()) for k, e in per_lane.items()},
                      "max_abs_err_x": float((kw[0] - pw[0]).abs().max())}
+        if start_noise:
+            def rel(u, v, x):
+                return {"step": float((u[0].double() - v[0].double()).abs()
+                                      .max() / (v[0].double() - x.double())
+                                      .abs().max()),
+                        "g": float((u[1].double() - v[1].double()).abs()
+                                   .max() / v[1].double().abs().max())}
+            xg = x_given[:B].contiguous()
+            kg = run(fa.fused_inner, well, a=dict(a, x=xg))
+            pg = run(fa.fused_inner_plain, well, a=dict(a, x=xg))
+            p64g = run(fa.fused_inner_plain, well,
+                       a={k: v.double() for k, v in dict(a, x=xg).items()},
+                       fs=fs64)
+            degenerate[tag] = {"kernel_vs_plain_f32": rel(kg, pg, xg),
+                               "plain_f32_vs_f64": rel(pg, p64g, xg)}
         check(e_dx <= K3_TOL_DX and e_gv <= K3_TOL_GV
               and e_stat <= K3_TOL_STAT,
-              f"{K3_NAME} {tag}: kernel vs plain float32, well-conditioned, "
+              f"{name} {tag}: kernel vs plain float32, well-conditioned, "
               f"{well_line} exceeds ({K3_TOL_DX}, {K3_TOL_GV}, "
               f"{K3_TOL_STAT})")
 
@@ -875,7 +1036,7 @@ def k3_kernel_phase(runner, consts, x0, p0):
         ref = p64[0]
         finite = torch.isfinite(p32[0]).all(-1)
         check(bool(torch.isfinite(got[0][finite]).all()),
-              f"{K3_NAME} {tag}: non-finite where the plain version is finite")
+              f"{name} {tag}: non-finite where the plain version is finite")
         m64 = _merit(ref, p64[1], a64, lb, ub, gf)
         decrease = _merit(a64["x"], g_in, a64, lb, ub, gf) - m64
 
@@ -884,14 +1045,14 @@ def k3_kernel_phase(runner, consts, x0, p0):
             return ((m - m64).abs() / decrease.abs())[finite]
         mer_k, mer_p = merit_err(got), merit_err(p32)
         check(pct(mer_k, 0.99) <= K3_MERIT_GATE,
-              f"{K3_NAME} {tag}: p99 merit error {pct(mer_k, 0.99)} of the "
+              f"{name} {tag}: p99 merit error {pct(mer_k, 0.99)} of the "
               f"float64 decrease > {K3_MERIT_GATE}")
         err_k = (got[0].double() - ref).abs().amax(-1)[finite]
         err_p = (p32[0].double() - ref).abs().amax(-1)[finite]
         floor = K3_GATE_FLOOR * float(ref.abs().max())
         gate = K3_GATE_FACTOR * max(pct(err_p, 0.99), floor)
         check(pct(err_k, 0.99) <= gate,
-              f"{K3_NAME} {tag}: p99 error vs float64 {pct(err_k, 0.99)} > "
+              f"{name} {tag}: p99 error vs float64 {pct(err_k, 0.99)} > "
               f"{gate}")
 
         timers[tag] = kern
@@ -904,7 +1065,7 @@ def k3_kernel_phase(runner, consts, x0, p0):
                               a["lb"], a["ub"], opt, n_inner, clocks=clocks)
         check(all(torch.equal(u.view(torch.int32), v.view(torch.int32))
                   for u, v in zip(prof, got)),
-              f"{K3_NAME} {tag}: the clock profile changed the outputs")
+              f"{name} {tag}: the clock profile changed the outputs")
         cyc = clocks.double().cpu().numpy()
         phases = {"cycles_per_block_iteration":
                   float(cyc.sum()) / (-(-B // lanes) * n_inner),
@@ -914,10 +1075,12 @@ def k3_kernel_phase(runner, consts, x0, p0):
         flops, nbytes = k3_work(plan, B, n_inner, len(opt.ls_candidates))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_F32_FLOPS * 1e3
-        line = {"name": K3_NAME, "shape": tag, "B": B, "n_inner": n_inner,
+        line = {"name": name, "shape": tag, "B": B, "n_inner": n_inner,
                 "lanes_per_block": lanes, "blocks": -(-B // lanes),
                 "phases": phases,
                 "smem_bytes_per_block": smem, "layout": layout,
+                "start_noise": start_noise,
+                "at_make_batch_start": degenerate.get(tag),
                 "finite_lanes": int(finite.sum()),
                 "well_conditioned_vs_plain_f32": well_line,
                 "merit_err_of_f64_decrease": {
@@ -939,7 +1102,7 @@ def k3_kernel_phase(runner, consts, x0, p0):
                 "bytes": nbytes, "flops": flops}
         print("kernel_check " + json.dumps(line), flush=True)
         if tag == "main":
-            rec = {"name": K3_NAME, "route": "cuda", "source": K3_SOURCE,
+            rec = {"name": name, "route": "cuda", "source": K3_SOURCE,
                    "replaces": K3_REPLACES, "launches": None,
                    "max_abs_err": well_line["max_abs_err_x"], "ms": None,
                    "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
@@ -954,10 +1117,160 @@ def k3_time_phase(rec, timers):
     end, as K1's and K2's); the main shape's goes to the record."""
     for tag, kern in timers.items():
         ms, _ = device_ms(kern, K3_KERNEL, reps=10, warmup=2)
-        print("kernel_time " + json.dumps({"name": K3_NAME, "shape": tag,
+        print("kernel_time " + json.dumps({"name": rec["name"], "shape": tag,
                                            "ms": ms}), flush=True)
         if tag == "main":
             rec["ms"] = ms
+
+
+def config_kernels(config, plan, B, rescue):
+    """K1 and K2 at the compact-arrow shapes of ``config``'s plan, in the
+    form of ``KERNELS``: the head solve (B x h, r = 1) and the tail blocks,
+    padded to the largest (B k x b_max, r = h + 1), at B and at the
+    rescue's lanes."""
+    h, k = plan.head[1], len(plan.blocks)
+    b = max(sz for _, sz in plan.blocks)
+    return (
+        (f"{KERNELS[0][0]}, {config}", "psd_solve", KERNELS[0][2],
+         (("main", (B, h, 1)), ("rescue", (rescue, h, 1)))),
+        (f"{KERNELS[1][0]}, {config}", "psd_solve_multi", KERNELS[1][2],
+         (("main", (B * k, b, h + 1)), ("rescue", (rescue * k, b, h + 1)))))
+
+
+def without_curvature(fn):
+    """``fn()`` with the plain K3's line search blind to the d'Q d term of
+    its candidates: a mutant that the curvature check must catch."""
+    import torch
+    from omg_tools_torch.ops import fused_alm as fa
+    line_search = fa._line_search
+
+    def blind(opt, gv, Jd, qd, *args):
+        return line_search(opt, gv, Jd, torch.zeros_like(qd), *args)
+    fa._line_search = blind
+    try:
+        return fn()
+    finally:
+        fa._line_search = line_search
+
+
+def k3_curvature_errors(runner, consts, x0, p0, kernel):
+    """The curvature check's numbers: from the state after K3_CURV_WARM
+    plain float32 iterations of the cold solve's inputs (phase 0, zero
+    multipliers, rho_init, the bench options), K3_CURV_INNER more
+    iterations by ``kernel`` (a function with fused_inner's arguments),
+    by the plain float32 version, by the plain float64 version and by the
+    plain version blind to d'Q d (``without_curvature``).  At the bench
+    plan's cold-solve state no quadratic row is active, so that d'Q d
+    never decides a step there; on this state it decides some lanes'.
+    Per lane: the kernel's and the mutant's max |x - x_plain| over the
+    largest plain step; ``resolved``: the lanes whose plain float32 step is
+    within K3_CURV_RESOLVED (of the largest step) of the float64 one, the
+    lanes on which float32 can be compared at all."""
+    import torch
+    from omg_tools_torch.ops import fused_alm as fa
+    plan, opt = runner.fused_plan, runner.solver.options
+    dev, B = x0.device, x0.shape[0]
+    lb, ub = runner.solver.scale_bounds(runner.lb, runner.ub, x0.dtype, dev)
+    fs = fa.FusedPlan.slice_phase(consts.FS, 0)
+    a = {"lam": torch.zeros((B, plan.m), dtype=x0.dtype, device=dev),
+         "rho": torch.full((B,), opt.rho_init, dtype=x0.dtype, device=dev),
+         "pv": p0[:, torch.as_tensor(plan.pcols, device=dev)].contiguous(),
+         "lb": lb, "ub": ub}
+
+    def run(fn, x, a=a, fs=fs, n=K3_CURV_INNER):
+        return fn(plan, fs, x, a["lam"], a["rho"], a["pv"], a["lb"],
+                  a["ub"], opt, n)
+    xw = run(fa.fused_inner_plain, x0.contiguous(), n=K3_CURV_WARM)[0]
+    xw = xw.contiguous()
+    got, plain = run(kernel, xw), run(fa.fused_inner_plain, xw)
+    blind = without_curvature(lambda: run(fa.fused_inner_plain, xw))
+    a64 = {k: v.double() for k, v in a.items()}
+    fs64 = dict(fs, tables=fs["tables"].double())
+    p64 = run(fa.fused_inner_plain, xw.double(), a=a64, fs=fs64)
+    scale = float((plain[0] - xw).abs().max())
+
+    def lane_err(out):
+        return ((out[0].double() - plain[0].double()).abs().amax(-1)
+                / scale).cpu()
+    resolved = ((plain[0].double() - p64[0]).abs().amax(-1)
+                <= K3_CURV_RESOLVED * float((p64[0] - xw.double()).abs()
+                                            .max())).cpu()
+    return {"kernel": lane_err(got), "blind": lane_err(blind),
+            "resolved": resolved, "finite": bool(torch.isfinite(got[0]).all())}
+
+
+def k3_curvature_check(runner, consts, x0, p0, name):
+    """Phase 13's curvature check, on the lanes float32 resolves: the
+    mutant blind to d'Q d must leave the plain version's step by more than
+    K3_TOL_DX on some lanes, and the kernel on at most K3_CURV_RATIO as
+    many.  (Not on none: where a candidate's Armijo test is a tie within
+    float32 rounding, the kernel's order of summation may pick the other
+    step; at 4,096 lanes of the quadrotor plan that happened on 6 lanes,
+    against the mutant's 78, NVIDIA H100 80GB HBM3, 700.00 W.)"""
+    from omg_tools_torch.ops import fused_alm as fa
+    e = k3_curvature_errors(runner, consts, x0, p0, fa.fused_inner)
+    r = e["resolved"]
+    line = {"name": name, "lanes": int(r.numel()), "resolved": int(r.sum()),
+            "warm": K3_CURV_WARM, "inner": K3_CURV_INNER, "tol": K3_TOL_DX,
+            "kernel_max": float(e["kernel"][r].max()),
+            "blind_max": float(e["blind"][r].max()),
+            "blind_lanes_over_tol": int((e["blind"][r] > K3_TOL_DX).sum()),
+            "kernel_lanes_over_tol": int((e["kernel"][r] > K3_TOL_DX).sum())}
+    print("k3_curvature " + json.dumps(line), flush=True)
+    check(e["finite"], f"{name}: non-finite output, curvature check")
+    check(line["blind_lanes_over_tol"] > 0,
+          f"{name}: the curvature check does not see d'Q d: {line}")
+    check(line["kernel_lanes_over_tol"]
+          <= K3_CURV_RATIO * line["blind_lanes_over_tol"],
+          f"{name}: kernel vs plain on the curvature check: {line}")
+    return line
+
+
+def config_phases(T, device, config, cache_root, B=BATCH):
+    """Phase 13 for one of ``CONFIGS``, on an empty host-tensor cache of
+    its own: setup, K3 checks, the main path, the compact-arrow path and
+    the cross-check.  Returns the kernels-line entries (K3 at the plan's
+    main shape; K1 and K2 at its compact-arrow shapes, their device times
+    taken in phase 14) and K3's timers."""
+    import torch
+    c = CONFIGS[config]
+    os.environ["OMG_CACHE_DIR"] = tempfile.mkdtemp(prefix=config + "_",
+                                                   dir=cache_root)
+    runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
+        setup_phase(T, device, B=B, config=config)
+    check(not hit, f"{config}: the build found its host tensors in the "
+          "cache")
+    roll = c["rollout"]
+    rescue = roll["rescue_lanes"]
+    shapes = (("main", B, roll["budgets"][0][1]),
+              ("rescue", rescue, INNER_ITER))
+    name = f"{K3_NAME}, {config}"
+    k3_entry, timers = k3_kernel_phase(
+        runner, consts, x0, p0, shapes, name, c.get("k3_start_noise", 0.0),
+        c.get("k3_well_quantile"))
+    k3_curvature_check(runner, consts, x0, p0, name)
+    st, launches, _ = main_path_phase(
+        runner, consts, starts, goals, x0, p0, state, setup_s,
+        timed_runs=1, rollout=roll, config=config)
+    k3_entry[1]["launches"] = launches["fused_inner"]
+    plan = runner.fused_plan
+    ca = compact_arrow_phase(runner, st, p0, state, rollout=roll,
+                             config=config)
+    cross_check_phase(T, runner, st, starts, goals, p0, config=config,
+                      lanes=CONFIG_CROSS_LANES)
+    chol = config_kernels(config, plan, B, rescue)
+    torch.cuda.synchronize()
+    return k3_entry, timers, chol, ca
+
+
+def config_records(device, chol, ca):
+    """Phase 14 for one configuration's K1/K2 shapes: the device times
+    (the checks run again on the same inputs), with the launches of its
+    compact-arrow phase."""
+    records = kernel_phase(device, kernels=chol)
+    for entry, rec in records:
+        rec["launches"] = ca[entry]
+    return records
 
 
 def timed_rollouts(roll, st, p0, state, consts, timed_runs):
@@ -979,10 +1292,18 @@ def timed_rollouts(roll, st, p0, state, consts, timed_runs):
 
 
 def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
-                    n_steps=N_STEPS, timed_runs=3):
+                    n_steps=N_STEPS, timed_runs=3, rollout=None,
+                    config="p2p_holonomic"):
+    """The B-lane batched rollout on the fused structure at ``rollout``'s
+    settings (the holonomic bench's by default); the launch counters are
+    zeroed before its first run and read after: K3 must have run, K1 and
+    K2 not.  The holonomic and quadrotor runs are gated on feasibility
+    (feas_p99 < 1e-3, no diverged lane); Dubins' on finite values."""
     import torch
     B = x0.shape[0]
-    roll = runner.rollout_fn(n_steps, **ROLLOUT)
+    rollout = ROLLOUT if rollout is None else rollout
+    feas_gate = CONFIGS.get(config, {}).get("feas_gate", True)
+    roll = runner.rollout_fn(n_steps, **rollout)
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1004,8 +1325,10 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
     feas_raw = carry[0].feas_raw.double().cpu().numpy()
     d0 = np.linalg.norm(starts - goals, axis=1)
     d1 = np.linalg.norm(states_np[:, -1] - goals, axis=1)
+    scaled = rollout.get("recover_metric", "raw") == "scaled"
     out = {
-        "structure": runner.structure, "batch": B, "n_steps": n_steps,
+        "config": config, "structure": runner.structure, "batch": B,
+        "n_steps": n_steps, "rollout": {k: v for k, v in rollout.items()},
         "setup_s": setup_s, "cold_solve_s": init_s,
         "first_rollout_s": first_s,
         "rollout_s": run_s, "rollout_s_all": times,
@@ -1024,7 +1347,12 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
         "feas_max": float(np.max(feas)),
         "feas_raw_p99": float(np.percentile(feas_raw, 99)),
         "feas_raw_max": float(np.max(feas_raw)),
-        "diverged_lanes": int(np.sum(feas_raw > 1e-2)),
+        # bench.py:465-467: the scaled metric's lanes above recover_tol,
+        # the raw metric's above 1e-2
+        "diverged_lanes": int(np.sum(
+            feas > rollout["recover_tol"] if scaled else feas_raw > 1e-2)),
+        "nan_lanes": int(np.sum(~np.isfinite(feas_raw)
+                                | ~np.isfinite(states_np).all((1, 2)))),
         "mean_progress_frac": float(np.mean((d0 - d1) / d0)),
         "n_iter_p50": float(np.median(carry[0].n_iter.cpu().numpy())),
         "init_launches": init_launches, "rollout_launches": launches,
@@ -1033,11 +1361,13 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
     }
     print("main_path " + json.dumps(out), flush=True)
     check(bool(np.isfinite(states_np).all()), "non-finite states")
-    check(out["feas_p99"] < FEAS_P99_GATE,
-          f"feas_p99 {out['feas_p99']} >= {FEAS_P99_GATE}")
+    check(out["nan_lanes"] == 0, f"{out['nan_lanes']} non-finite lanes")
+    if feas_gate:
+        check(out["feas_p99"] < FEAS_P99_GATE,
+              f"feas_p99 {out['feas_p99']} >= {FEAS_P99_GATE}")
+        check(out["diverged_lanes"] == 0,
+              f"{out['diverged_lanes']} diverged lanes")
     check(out["mean_progress_frac"] > 0.0, "no progress toward the goals")
-    check(out["diverged_lanes"] == 0,
-          f"{out['diverged_lanes']} diverged lanes")
     check(launches["fused_inner"] > 0, "K3 never launched on the main path")
     for name in ("psd_solve", "psd_solve_multi"):
         check(launches[name] == 0,
@@ -1045,7 +1375,8 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
     return st, launches, out
 
 
-def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
+def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS,
+                        rollout=None, config="p2p_holonomic"):
     """Phase 10: the compact-arrow path (K1 + K2) on the same runner and
     batch, with the fused plan taken off, warm-started from the fused cold
     solve; its launch counts are the K1/K2 records'."""
@@ -1054,7 +1385,8 @@ def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
     check(runner.structure == "compact-arrow",
           f"structure {runner.structure} without a fused plan")
     consts = runner.consts()
-    roll = runner.rollout_fn(n_steps, **ROLLOUT)
+    roll = runner.rollout_fn(n_steps, **(ROLLOUT if rollout is None
+                                          else rollout))
     zero_launch_counts()
     t0 = time.time()
     carry, states = roll(st, p0, state, consts)
@@ -1064,7 +1396,8 @@ def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS):
     carry, states, run_s, times, step_ms = timed_rollouts(
         roll, st, p0, state, consts, timed_runs=1)
     feas = carry[0].feas.double().cpu().numpy()
-    out = {"structure": runner.structure, "batch": int(st.x.shape[0]),
+    out = {"config": config, "structure": runner.structure,
+           "batch": int(st.x.shape[0]),
            "n_steps": n_steps, "first_rollout_s": first_s,
            "rollout_s": run_s, "step_ms": step_ms,
            "p50_step_latency_ms": float(np.median(step_ms)),
@@ -1134,7 +1467,8 @@ def profile_phase(runner, st, p0, state, path):
     return out
 
 
-def cross_check_phase(T, runner, st, starts, goals):
+def cross_check_phase(T, runner, st, starts, goals, p0,
+                      config="p2p_holonomic", lanes=CROSS_LANES):
     """The cold solve of the first CROSS_LANES scenarios by the port on the
     CPU in float64 against (a) the card's float32 fused solve and (b) the
     same float64 runner moved to the card, whose compact-arrow solve runs
@@ -1148,36 +1482,36 @@ def cross_check_phase(T, runner, st, starts, goals):
     import torch
     t0 = time.time()
     cpu_runner = T.BatchedP2PRunner(
-        build_problem(T), dtype=torch.float64, device="cpu",
+        build_problem(T, config), dtype=torch.float64, device="cpu",
         alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
-    x0, p0, _ = cpu_runner.make_batch(starts[:CROSS_LANES],
-                                      goals[:CROSS_LANES])
-    st_cpu = cpu_runner.init_solver_state(x0, p0)
-    want = planned_state(cpu_runner, st_cpu.x).numpy()
+    x0, p0c, _ = cpu_runner.make_batch(starts[:lanes], goals[:lanes])
+    st_cpu = cpu_runner.init_solver_state(x0, p0c)
+    want = planned_state(cpu_runner, st_cpu.x, p0c).numpy()
 
-    def err_m(x, runner_):
-        got = planned_state(runner_, x).double().cpu().numpy()
+    def err_m(x, runner_, p_):
+        got = planned_state(runner_, x, p_).double().cpu().numpy()
         return np.max(np.abs(got - want), axis=1)
 
-    err = err_m(st.x[:CROSS_LANES], runner)
+    err = err_m(st.x[:lanes], runner, p0[:lanes])
     gen = torch.Generator().manual_seed(0)
     noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
-    st_self = cpu_runner.init_solver_state(x0 * (1 + F64_PERTURB * noise), p0)
-    err_self = err_m(st_self.x, cpu_runner)
+    st_self = cpu_runner.init_solver_state(x0 * (1 + F64_PERTURB * noise),
+                                           p0c)
+    err_self = err_m(st_self.x, cpu_runner, p0c)
     # the float64 runner on the card shares the CPU runner's host work
     card64 = cpu_runner.to(runner.device)
-    xc, pc, _ = card64.make_batch(starts[:CROSS_LANES], goals[:CROSS_LANES])
+    xc, pc, _ = card64.make_batch(starts[:lanes], goals[:lanes])
     zero_launch_counts()
     st64 = card64.init_solver_state(xc, pc)
     torch.cuda.synchronize()
     launches64 = launch_counts()
-    err64 = err_m(st64.x, card64)
+    err64 = err_m(st64.x, card64, pc)
 
     def stats(e):
         return {"max_err_m": float(e.max()),
                 "p50_err_m": float(np.median(e)),
                 "p90_err_m": float(np.percentile(e, 90))}
-    out = {"lanes": CROSS_LANES, **stats(err),
+    out = {"config": config, "lanes": lanes, **stats(err),
            "cpu_feas_max": float(st_cpu.feas.max()),
            "card_f64": {"structure": card64.structure,
                         "dtype": str(st64.x.dtype), **stats(err64),
@@ -1206,12 +1540,12 @@ def main():
     cache_root = tempfile.mkdtemp(prefix="omg_cache_")
     os.environ["OMG_CACHE_DIR"] = cache_root
     try:
-        run()
+        run(cache_root)
     finally:
         shutil.rmtree(cache_root, ignore_errors=True)
 
 
-def run():
+def run(cache_root):
     sys.path.insert(0, HERE)
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1248,16 +1582,21 @@ def run():
     launches.update({k: v for k, v in compact_arrow_phase(
         runner, st, p0, state).items() if k != "fused_inner"})
     profile_phase(runner, st, p0, state, "compact-arrow")
-    cross_check_phase(T, runner, st, starts, goals)
+    cross_check_phase(T, runner, st, starts, goals, p0)
     k1_f64_launches, k1_f64_per_update = closed_loop_phase(device)
     example_phase()
-    # phase 13: device times, after every timed run
+    # phase 13: the other bench configurations
+    done = [config_phases(T, device, c, cache_root) for c in CONFIGS]
+    # phase 14: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
     k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
     records.append(("psd_solve", k1_f64_record(device, k1_f64_launches,
                                                k1_f64_per_update)))
+    for c_k3, c_timers, chol, ca in done:
+        k3_time_phase(c_k3[1], c_timers)
+        records += config_records(device, chol, ca) + [c_k3]
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

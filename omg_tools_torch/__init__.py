@@ -8,9 +8,12 @@ thousands of scenarios on one NVIDIA H100.
 The port imports torch and numpy, never JAX nor anything of the JAX
 package.  Its entry points run on CUDA unless the caller passes
 ``device="cpu"`` (a problem: the ``device`` option).  So far it covers
-the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``)
-with a Holonomic vehicle, the batched p2p_holonomic rollout and the scipy
-reference solver; ``ROADMAP.md`` lists what is still to port.
+the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``),
+the Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins,
+Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the batched
+rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and p2p_dubins
+configurations and the scipy reference solver; ``ROADMAP.md`` lists what
+is still to port.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +29,12 @@ from .environment.environment import Environment
 from .environment.obstacle import Obstacle
 from .models.base import Vehicle
 from .models.holonomic import Holonomic
+from .models.holonomic1d import Holonomic1D
+from .models.holonomic3d import Holonomic3D
+from .models.holonomicorient import HolonomicOrient
+from .models.dubins import Dubins
+from .models.quadrotor import Quadrotor
+from .models.quadrotor3d import Quadrotor3D, SimpleQuadrotor3D
 from .problems.problem import Problem
 from .problems.point2point import (Point2point, Point2pointProblem,
                                    FixedTPoint2point)

@@ -1,12 +1,12 @@
 """Vehicle base class (counterpart of ``omg_tools_tpu.models.base``):
-spline knot setup, spline decision variables, the 2D
+spline knot setup, spline decision variables, the 2D and 3D
 separating-hyperplane + room collision constraints, trajectory storage and
 the plant's prediction and simulation for the closed loop (host numpy).
 
 Prediction and simulation use a fixed-step RK4 integrator with linear
 input interpolation between samples, as the JAX package does.
 
-Not ported yet: 3D collision constraints.
+Not ported yet: ``get_fleet_center`` (fleets).
 """
 
 from __future__ import annotations
@@ -181,6 +181,49 @@ class Vehicle(OptiChild, PlotLayer):
                     con = con + (hpp["a"][0] * pos0 + hpp["a"][1] * pos1)
                     con = con + (-hpp["b"] + rad[l]) * (1 + tg_ha ** 2)
                     self.define_constraint(con, -BIG, 0.0)
+
+    def define_collision_constraints_3d(self, hyperplanes, room, positions,
+                                        horizon_time):
+        t = self.problem_t
+        safety_distance = self.options["safety_distance"]
+        safety_weight = self.options["safety_weight"]
+        positions = [positions] if not isinstance(positions[0], list) \
+            else positions
+        for s, shape in enumerate(self.shapes):
+            position = positions[s]
+            checkpoints, rad = shape.get_checkpoints()
+            checkpoints = [[float(c) for c in chck] for chck in checkpoints]
+            rad = [float(r) for r in rad]
+            if shape in hyperplanes:
+                for k, hyp in enumerate(hyperplanes[shape]):
+                    a, b = hyp["a"], hyp["b"]
+                    if safety_distance > 0.0:
+                        eps = self.define_spline_variable(f"eps_{s}{k}")[0]
+                        self.define_objective(
+                            safety_weight * definite_integral(
+                                eps, t / horizon_time, 1.0))
+                        self.define_constraint(eps - safety_distance, -BIG, 0.0)
+                        self.define_constraint(-eps, -BIG, 0.0)
+                    else:
+                        eps = 0.0
+                    for l, chck in enumerate(checkpoints):
+                        con = sum(a[m] * (chck[m] + position[m])
+                                  for m in range(3))
+                        self.define_constraint(
+                            con - b + rad[l] + safety_distance - eps,
+                            -BIG, 0.0)
+            if self.options["room_constraints"]:
+                lims = room["shape"].get_canvas_limits()
+                room_lims = [[float(v) for v in lims[k] + room["position"][k]]
+                             for k in range(3)]
+                for chck in checkpoints:
+                    for k in range(3):
+                        self.define_constraint(
+                            -(chck[k] + position[k]) + room_lims[k][0],
+                            -BIG, 0.0)
+                        self.define_constraint(
+                            (chck[k] + position[k]) - room_lims[k][1],
+                            -BIG, 0.0)
 
     # -- deployment --------------------------------------------------------
     def store(self, current_time, sample_time, spline_segments, segment_times,

@@ -46,8 +46,14 @@ so that a warp reads 32 consecutive words at each step.  The lists:
 the kernel for CUDA tensors, counting launches in ``fused_inner.launches``.
 The plain version forms Q x and Q dx once per quad family and iteration:
 the line search's J dx = A dx + 2 x' Q dx reads the contraction Q dx,
-which holds because every Q row is symmetric (a Hessian; checked when the
-plan is built).  The kernel forms J dx from J itself, the same quantity.
+which holds because every Q row is symmetric.  A Q row is a Hessian, and
+the one that host AD detects is symmetric to rounding only, so the plan
+takes 0.5 (Q + Q') and refuses a Q whose asymmetry exceeds rounding
+(``Q_SYM_RTOL``).  The kernel forms J dx from J itself, the same quantity.
+
+:meth:`FusedPlan.kernel_refusal` says whether K3 takes a plan (its sizes
+and the card's shared memory); the batched runner asks it before it
+picks the fused structure.
 """
 
 from __future__ import annotations
@@ -96,6 +102,8 @@ SMEM_PER_SM = 233472
 SMEM_RESERVED = 1024
 SMEM_BLOCK_MAX = 232448
 BLOCKS_PER_SM = 2
+# a quad family's Q may be asymmetric by this much of max |Q| (rounding)
+Q_SYM_RTOL = 1e-12
 
 
 def _r4(count):
@@ -207,8 +215,15 @@ class FusedPlan:
             iQ = -1
             if Qc is not None:
                 Qc = np.asarray(Qc)
-                if not np.array_equal(Qc, Qc.transpose(0, 2, 1)):
-                    raise ValueError(f"family {i}: Q rows are not symmetric")
+                Qt = Qc.transpose(0, 2, 1)
+                asym = float(np.abs(Qc - Qt).max(initial=0.0))
+                scale = float(np.abs(Qc).max(initial=0.0))
+                if asym > Q_SYM_RTOL * scale:
+                    raise ValueError(
+                        f"family {i}: Q rows are not symmetric (max "
+                        f"|Q - Q'| {asym:.3g} > {Q_SYM_RTOL} max |Q| "
+                        f"{scale:.3g})")
+                Qc = 0.5 * (Qc + Qt)
                 m_f, n_f = Qc.shape[0], Qc.shape[1]
                 iQ = len(Q_for)
                 Q_for.append(np.ascontiguousarray(
@@ -348,9 +363,6 @@ class FusedPlan:
             rows += [(fi, i, np.nonzero(pat[i])[0]) for i in range(m_f)]
         R = _Sliced([len(js) for _, _, js in rows])
         nJ = R.size
-        if nJ > MAX_J:
-            raise ValueError(f"J has {nJ} positions, the kernel takes "
-                             f"{MAX_J}")
         col = np.zeros(nJ, np.int64)
         rowof = np.zeros(nJ, np.int64)
         pos = {}                                # (row, local column) -> p
@@ -468,6 +480,33 @@ class FusedPlan:
         buf[self.voff["c0"]:self.voff["c0"] + self.m] = self.c0[phase]
         buf[self.voff["gf"]:self.voff["gf"] + self.n_x] = self.gf[phase]
         return buf
+
+    def kernel_refusal(self):
+        """None when K3 takes this plan, else why not: the head and each
+        tail block at most MAX_SIZE, at most MAX_BLOCKS tail blocks, J's
+        positions within MAX_J (16-bit pair indices) and one lane's block
+        within the card's shared memory (SMEM_BLOCK_MAX)."""
+        sizes = [self.head[1]] + [sz for _, sz in self.blocks]
+        why = []
+        if max(sizes) > MAX_SIZE:
+            why.append(f"head and tail blocks {sizes}: one above "
+                       f"MAX_SIZE {MAX_SIZE}")
+        if len(self.blocks) > MAX_BLOCKS:
+            why.append(f"{len(self.blocks)} tail blocks > MAX_BLOCKS "
+                       f"{MAX_BLOCKS}")
+        if self.n_j > MAX_J:
+            why.append(f"{self.n_j} J positions > MAX_J {MAX_J}")
+        if self.smem_bytes(1) > SMEM_BLOCK_MAX:
+            why.append(f"{self.smem_bytes(1)} shared bytes for one lane > "
+                       f"SMEM_BLOCK_MAX {SMEM_BLOCK_MAX}")
+        return "; ".join(why) or None
+
+    def summary(self):
+        """The plan's sizes in one line (the runner's structure reason)."""
+        return (f"n {self.n_x}, m {self.m}, head {self.head[1]}, tail "
+                f"blocks {[sz for _, sz in self.blocks]}, {self.n_j} J "
+                f"positions, {self.values_len} values a phase, "
+                f"{self.smem_bytes(1)} shared bytes for one lane")
 
     def stage_len(self):
         """Descriptor words a block copies into shared memory: the header,
@@ -609,6 +648,26 @@ def _scatter(plan, f, g_f, H, grad, S, D, M):
                                                       ob:ob + sb]
 
 
+def _line_search(opt, gv, Jd, qd, df_obj, slope, lor, rho, lb, ub):
+    """The exact-quadratic Armijo search: along dx, g moves to
+    gv + a J dx + a^2 dx'Q dx, so each candidate's merit is exact; the
+    first acceptable candidate a (0 where none is)."""
+    def penalty(g):
+        rr = g + lor
+        return 0.5 * rho * ((rr - torch.clamp(rr, lb, ub)) ** 2).sum(-1)
+
+    m0 = penalty(gv)           # f0 + gf.x cancels in the comparison
+    alpha = torch.zeros_like(rho)
+    found = torch.zeros(rho.shape, dtype=torch.bool, device=rho.device)
+    for a in opt.ls_candidates:
+        a = float(a)
+        mv = a * df_obj + penalty(gv + a * Jd + (a * a) * qd)
+        ok = torch.isfinite(mv) & (mv <= m0 + (opt.armijo * a) * slope)
+        alpha = torch.where(ok & ~found, torch.full_like(alpha, a), alpha)
+        found = found | ok
+    return alpha
+
+
 def fused_inner_plain(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
     """K3's arithmetic in PyTorch.  ``fs``: one phase's shared operands
     (:meth:`FusedPlan.slice_phase`); x (B, n), lam (B, m), rho (B,),
@@ -733,21 +792,8 @@ def fused_inner_plain(plan, fs, x, lam, rho, pv, lb, ub, opt, n_inner):
                 qd[:, rows] = (t2 * df[:, None, :]).sum(-1)
             else:
                 Jd[:, rows] = (A * df[:, None, :]).sum(-1)
-        df_obj = dx @ tb["gf"]
-
-        def penalty(g):
-            rr = g + lor
-            return 0.5 * rho * ((rr - torch.clamp(rr, lb, ub)) ** 2).sum(-1)
-
-        m0 = penalty(gv)           # f0 + gf.x cancels in the comparison
-        alpha = torch.zeros((B,), dtype=dt, device=dev)
-        found = torch.zeros((B,), dtype=torch.bool, device=dev)
-        for a in opt.ls_candidates:
-            a = float(a)
-            mv = a * df_obj + penalty(gv + a * Jd + (a * a) * qd)
-            ok = torch.isfinite(mv) & (mv <= m0 + (opt.armijo * a) * slope)
-            alpha = torch.where(ok & ~found, torch.full_like(alpha, a), alpha)
-            found = found | ok
+        alpha = _line_search(opt, gv, Jd, qd, dx @ tb["gf"], slope, lor, rho,
+                             lb, ub)
         x = x + alpha[:, None] * dx
         gv = gv + alpha[:, None] * Jd + (alpha * alpha)[:, None] * qd
         stat = grad.abs().amax(-1)

@@ -10,12 +10,14 @@ then the family compaction and the arrow partition -- runs once in float64
 on the CPU and is cached on disk (``utils.cache``, keyed on the problem's
 fingerprint, ``runner._cache_key``); its tensors then move to the device.
 
-Scope: FixedT Point2point problems with a Holonomic vehicle, obstacles with
-constant-acceleration motion, ideal plant update, the ``compact-arrow``
-solver structure and, in float32, ``compact-arrow-fused`` (every inner
-iteration of an outer round in one launch of the fused kernel K3,
-``ops/fused_alm.py``).  The dense and generic batched structures are not
-ported yet.
+Scope: FixedT Point2point problems with a vehicle that has a rollout
+recipe (``problems/rollout_models.py``: Holonomic, the quadrotors,
+HolonomicOrient, Dubins), obstacles with constant-acceleration motion,
+ideal plant update, the ``compact-arrow`` solver structure and, in
+float32, ``compact-arrow-fused`` (every inner iteration of an outer round
+in one launch of the fused kernel K3, ``ops/fused_alm.py``) wherever K3
+takes the plan.  The dense, generic and compact (no arrow) batched
+structures are not ported yet.
 """
 
 from __future__ import annotations
@@ -151,8 +153,6 @@ class BatchedP2PRunner:
         self.spline_shape = shape  # (n_coeffs, n_spl)
 
         self.model = make_rollout_model(self)
-        self.i_state0 = self.model.i_state0
-        self.i_input0 = self.model.i_input0
         self.i_poseT = self.model.i_goal
 
         self.lb_np, self.ub_np = tr.bounds(0.0)
@@ -205,13 +205,26 @@ class BatchedP2PRunner:
                 "compact-arrow structure only so far")
 
         # the fused inner loop (K3): one kernel launch per outer round; the
-        # kernel is float32, so float64 runners keep compact-arrow.  The
-        # plan is the one selector of the path (see ``structure``):
-        # ``runner.fused_plan = None`` turns a built runner to compact-arrow
+        # kernel is float32, so float64 runners keep compact-arrow, and it
+        # takes plans within its limits (``FusedPlan.kernel_refusal``: the
+        # card's shared memory and the kernel's sizes, where the JAX
+        # package gates on the TPU's VMEM).  Decided here, before any
+        # launch; a plan that fails to build raises.  The plan is the one
+        # selector of the path (see ``structure``): ``runner.fused_plan =
+        # None`` turns a built runner to compact-arrow
         self.fused_plan = None
-        if (dtype == torch.float32
-                and os.environ.get("OMG_DISABLE_FUSED", "0") != "1"):
-            self.fused_plan = FusedPlan(self.compact)
+        if dtype != torch.float32:
+            self.structure_reason = f"{dtype}: K3 is float32"
+        elif os.environ.get("OMG_DISABLE_FUSED", "0") == "1":
+            self.structure_reason = "OMG_DISABLE_FUSED=1"
+        else:
+            plan = FusedPlan(self.compact)
+            refusal = plan.kernel_refusal()
+            if refusal is None:
+                self.fused_plan = plan
+                self.structure_reason = "K3 takes the plan: " + plan.summary()
+            else:
+                self.structure_reason = "K3 refuses the plan: " + refusal
 
         self._alm_options = alm_options if alm_options is not None \
             else ALMOptions()
@@ -374,6 +387,17 @@ class BatchedP2PRunner:
         x0 = np.tile(tr.initial_guess()[None, :], (B, 1))
         x0[:, self.i_splines] = self.model.init_guess(
             starts, goals, n_coef).reshape(B, -1)
+        # lifted position splines (Dubins substitution): straight-line
+        # coefficient guesses from start to goal per axis
+        for ax, name in enumerate(("xs_lift", "ys_lift")):
+            try:
+                sl, shape = tr.var_slice(vehicle, name)
+            except KeyError:
+                break
+            ramp = np.linspace(0.0, 1.0, shape[0])[None, :]
+            x0[:, sl.start:sl.stop] = (
+                starts[:, ax:ax + 1] + ramp
+                * (goals[:, ax:ax + 1] - starts[:, ax:ax + 1]))
 
         p0 = np.tile(problem.pack_parameters(0.0)[None, :], (B, 1))
         p0 = self.model.batch_params(p0, starts, goals)
@@ -435,16 +459,23 @@ class BatchedP2PRunner:
 
     def rollout_fn(self, n_steps, outer_iter=4, recover_tol=0.3,
                    rescue_lanes=0, rescue_outer=3, rescue_tol=1e-3,
-                   budgets=None, streak_tol=8e-3):
+                   budgets=None, streak_tol=8e-3, recover_metric="raw"):
         """Return ``rollout(alm_state, p, state, consts=None) ->
         ((alm_state, p, state), states (B, n_steps, n_dim))`` advancing
         ``n_steps`` MPC periods on the runner's device.
 
-        ``recover_tol``: lanes whose raw-unit violation exceeds it get a
-        masked warm-start reset at the next step (straight-line spline
-        guess from the current state to the goal, multipliers zeroed,
-        penalty 100); a sustained violation above ``streak_tol`` for 2
-        consecutive steps triggers the same reset.
+        ``recover_tol``: lanes whose violation exceeds it get a masked
+        warm-start reset at the next step (the recipe's fresh guess from
+        the current state to the goal, multipliers zeroed, penalty 100); a
+        sustained violation above ``streak_tol`` for 2 consecutive steps
+        triggers the same reset.
+
+        ``recover_metric``: the violation that drives recovery and rescue.
+        ``"raw"`` (the unit-mixing inf-norm, ``feas_raw``) suits problems
+        whose raw and scaled violations are commensurate (holonomic);
+        ``"scaled"`` (row-scaled, ``feas``) is needed where high-derivative
+        rows leave a raw float32 floor above any sensible tolerance
+        (SimpleQuadrotor3D: its T^4-scaled rows sit at raw ~0.14).
 
         ``rescue_lanes``: after each batched solve the worst lanes by
         violation (ties: lower lane index first, as ``lax.top_k``) are
@@ -476,10 +507,12 @@ class BatchedP2PRunner:
                         for ids in self.obstacle_idx]
         n_coef, n_spl = self.spline_shape
         horizon = self.horizon
-        # the raw-unit violation drives recovery and rescue (the JAX
-        # runner's recover_metric="raw", which the holonomic bench uses)
+        if recover_metric not in ("raw", "scaled"):
+            raise ValueError(f"recover_metric {recover_metric!r}: 'raw' or "
+                             "'scaled'")
+
         def trigger_feas(st):
-            return st.feas_raw
+            return st.feas if recover_metric == "scaled" else st.feas_raw
 
         def bmask(mask, a):
             return mask.reshape((-1,) + (1,) * (a.dim() - 1))

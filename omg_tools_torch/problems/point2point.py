@@ -25,7 +25,8 @@ class Point2point:
     def __new__(cls, fleet, environment, options=None, freeT=False):
         if freeT:
             raise NotImplementedError(
-                "FreeTPoint2point is not ported to omg_tools_torch yet")
+                "FreeTPoint2point is not ported to omg_tools_torch yet "
+                "(ROADMAP.md Queue 1 item 2)")
         return FixedTPoint2point(fleet, environment, options)
 
 

@@ -59,6 +59,38 @@ def test_subprocess_builds_bench_problem_without_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+# bench.py's other scenes and every ported vehicle, in a fresh interpreter
+_CHILD_VEHICLES = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+sys.path.insert(0, ".")
+import chip_smoke
+for config in ("p2p_3dquadrotor", "p2p_dubins"):
+    assert chip_smoke.build_problem(T, config).transcription.n_x > 0
+for cls in (T.Holonomic1D, T.Holonomic3D, T.HolonomicOrient, T.Quadrotor,
+            T.Quadrotor3D, T.SimpleQuadrotor3D, T.Dubins):
+    assert cls().n_spl > 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_builds_other_bench_problems_without_jax():
+    out = subprocess.run([sys.executable, "-c",
+                          _CHILD_VEHICLES % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

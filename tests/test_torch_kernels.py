@@ -35,6 +35,11 @@ EDGE_K2 = [(3, 32, 32), (3, 33, 33), (2, 64, 2), (2, 65, 3)]
 # every class and its edges, for the kernels on the card
 CARD_N = [1, 8, 26, 31, 32, 33, 64, 65, 151]
 CARD_R = [1, 2, 27, 32, 33]
+# the compact-arrow shapes of bench.py's p2p_3dquadrotor (head 42, tail
+# blocks 44 and 14, r = 43) and p2p_dubins (head 54, tail blocks 43, 33,
+# 14 and 13, r = 55): (systems, n, r)
+BENCH_SHAPES = [(6, 42, 1), (4, 44, 43), (4, 14, 43), (5, 54, 1),
+                (5, 43, 55), (5, 33, 55), (5, 14, 55), (5, 13, 55)]
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +112,21 @@ def test_psd_solve_multi_plain_matches_jax_interpret_at_class_edges(
     H, G = _spd(B, n, r, seed=7)
     want = np.asarray(jk.batched_psd_solve_multi(H, G, interpret=True))
     got = pk.psd_solve_multi(torch.as_tensor(H), torch.as_tensor(G))
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=TOL * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("B,n,r", BENCH_SHAPES)
+def test_plain_matches_jax_interpret_at_bench_shapes(jk, B, n, r):
+    """The plain versions at the shapes of the quadrotor and Dubins plans
+    against the JAX package's kernels in interpret mode, float32."""
+    H, G = _spd(B, n, r, seed=9)
+    if r == 1:
+        want = np.asarray(jk.batched_psd_solve(H, G[..., 0], interpret=True))
+        got = pk.psd_solve(torch.as_tensor(H), torch.as_tensor(G[..., 0]))
+    else:
+        want = np.asarray(jk.batched_psd_solve_multi(H, G, interpret=True))
+        got = pk.psd_solve_multi(torch.as_tensor(H), torch.as_tensor(G))
     np.testing.assert_allclose(got.numpy(), want,
                                atol=TOL * np.max(np.abs(want)))
 
@@ -269,6 +289,21 @@ def test_cuda_kernel_every_size_class(cuda_device, r, dtype):
         H, G = _card(5, n, r, n + r, cuda_device, dtype)
         got, want = _solve(H, G)
         _assert_close(got, want, tol, (n, r, pk.variant(n, r, H.dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_kernel_at_bench_shapes(cuda_device, dtype):
+    """K1/K2 at the shapes of the quadrotor and Dubins plans, and at their
+    rollouts' widths (4096 lanes of the head, the padded tail blocks of
+    every lane), against the plain versions."""
+    tol = TOL if dtype == np.float32 else TOL_F64
+    shapes = BENCH_SHAPES + [(4096, 42, 1), (16384, 44, 43), (4096, 54, 1),
+                             (20480, 43, 55)]
+    for (B, n, r) in shapes:
+        H, G = _card(B, n, r, n + r, cuda_device, dtype)
+        got, want = _solve(H, G)
+        _assert_close(got, want, tol, (B, n, r, pk.variant(n, r, H.dtype)))
 
 
 @pytest.mark.gpu
