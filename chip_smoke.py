@@ -11,8 +11,8 @@ Phases, in order; any failure raises and exits non-zero:
    frame and spills of every kernel instance;
 3. kernels K1/K2: each against its plain PyTorch version on random SPD
    inputs at the shapes of the compact-arrow path, of its rescue batch and
-   (K1) of the dense and generic ALM modes, in float32, and at the main
-   shapes in float64; the variant each shape runs (a register class at
+   (K1) of the dense and generic ALM modes and of the formation's
+   x-update (4 x 85), in float32, and at the main shapes in float64; the variant each shape runs (a register class at
    the main shapes); one-call CUDA-event times (``call_ms``) and the plain
    version's;
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
@@ -61,9 +61,10 @@ Phases, in order; any failure raises and exits non-zero:
 12. closed loop: the Quick Start (``Point2point`` + ``Simulator``) on the
     bench scene in float64 on the card, 15 updates in the dense quadratic
     mode (tests/test_p2p.py's progress and clearance criteria), and three
-    in the default generic mode on a cut budget, every solver call's
-    iterate within 1e-8 of the quadratic mode's on that budget; K1
-    (float64, one 151-row system a launch) must run in every update; then
+    in the default generic mode on a cut budget (its Newton steps CUDA
+    graphs, ``ops.alm``), every solver call's iterate within 1e-8 of the
+    quadratic mode's on that budget; K1 (float64, one 151-row system a
+    launch) must run in every update; then
     ``examples_torch/p2p_holonomic.py`` in smoke mode in a process of its
     own;
 13. the other bench configurations, ``p2p_3dquadrotor`` and ``p2p_dubins``
@@ -78,12 +79,32 @@ Phases, in order; any failure raises and exits non-zero:
     version without that term does not), the B = 4096, 20-step rollout at
     bench.py's settings for the configuration (K3 only), 3 compact-arrow
     steps (K1 and K2), and the cross-check of 11 on 16 lanes;
-14. times: the device time of K1 and K2 at every shape of 3 and 13
+14. the formation: bench.py's formation_holonomic (bench.py:125-230: four
+    Holonomic vehicles, rho 0.5, a 0.4 m circle) through
+    ``parallel.FleetRunner`` in float32 at bench.py's settings (2 outer
+    rounds of the template's 16 inner iterations an x-update, 20 ADMM
+    iterations, a 20-period rollout at one iteration a period; one timed
+    run of each loop, not 3): bench.py's fields (iterations/s, the
+    residual curves and decrease, consensus_rms_m < 0.02,
+    rollout_periods_per_s, setup_s); K1 (4 x 85, float32) must launch in
+    every x-update and every vehicle end the rollout > 0.2 m nearer its
+    goal; a generic Newton iteration of the x-update timed three ways
+    (its CUDA graph, which must equal the eager step bit for bit and take
+    <= 100 ms; the eager step; the per-op evaluations it replaced); one
+    ADMM iteration traced (device busy share); the float32 Z after 20
+    iterations within 2 cm of a float64 FleetRunner's on the card (K1 in
+    float64 at 4 x 85, launches counted), and that run's Z after 2
+    iterations within 2 cm of the port's float64 run on the CPU from the
+    same carry, beside the CPU run's own sensitivity to a 1e-15
+    perturbation; then ``examples_torch/formation_holonomic.py`` in smoke
+    mode in a process of its own;
+15. times: the device time of K1 and K2 at every shape of 3 and 13
     (``device_ms``: the profiler's self CUDA time of the kernel's own name
     over 20 launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
     kernels on the same inputs, K3's at both shapes of 6 and of each plan
     of 13, and K1's in float64 at the closed loop's shape (1 x 151); taken
-    last, so that no profiler session but 9's precedes the timed runs.
+    last, so that no profiler session but 9's (and 14's trace) precedes
+    the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
@@ -153,6 +174,21 @@ CL_GENERIC_BUDGET = {"outer_iter": 1, "inner_iter": 8}
 # (tests/test_torch_closed_loop.py); a call here runs 8
 CL_GENERIC_TOL = 1e-8
 EXAMPLE_TIMEOUT_S = 400
+# bench.py's formation_holonomic (bench.py:125-230) at its settings: N = 4
+# Holonomic vehicles, rho 0.5, 2 outer ALM rounds of the template's 16
+# inner iterations an x-update, 20 ADMM iterations, a 20-period rollout
+# at one iteration a period; one timed run of each loop (bench.py: 3)
+FLEET_N = 4
+FLEET_RHO = 0.5
+FLEET_OUTER = 2
+ADMM_ITERS = 20
+FLEET_STEPS = 20
+CONSENSUS_GATE_M = 0.02   # bench.py:211-212 (the p2p parity standard)
+FLEET_PROGRESS_M = 0.2    # tests/test_fleet_runner.py:90-103
+FLEET_PARITY_M = 0.02     # float32 card / float64 card / float64 CPU Z
+FLEET_CPU_ITERS = 2       # the CPU's float64 run (~1 s a Newton iteration)
+NEWTON_MS_GATE = 100.0    # a generic Newton iteration of the x-update
+NEWTON_REPS = 10
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
 # cores and the f64 rate through them (IEEE float64; 34e12 outside them):
@@ -168,7 +204,7 @@ KERNELS = (
     ("K1 chol_solve r=1 (psd_solve)", "psd_solve",
      "omg_tools_tpu/ops/pallas_kernels.py:40",
      (("main", (4096, 26, 1)), ("rescue", (128, 26, 1)),
-      ("dense", (256, 151, 1)))),
+      ("dense", (256, 151, 1)), ("formation", (4, 85, 1)))),
     ("K2 chol_solve multi-RHS (psd_solve_multi)", "psd_solve_multi",
      "omg_tools_tpu/ops/pallas_kernels.py:118",
      (("main", (20480, 33, 27)), ("rescue", (640, 33, 27)))),
@@ -184,6 +220,10 @@ K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
 K1_F64_NAME = "K1 chol_solve r=1 (psd_solve) float64, Problem.solve"
 K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
 K1_F64_SHAPE = (1, 151, 1)
+# K1 at the formation's x-update: the generic mode's Newton system of the
+# four vehicles' template (n_x = 85), one system a lane
+K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
+K1_FLEET_SHAPE = (4, 85, 1)
 
 # bench.py's other single-vehicle configurations (bench.py:233-345) at
 # bench.py's settings for each: budgets, rescue, recovery metric and
@@ -389,8 +429,9 @@ def _chol_call(pk, entry, H, G):
 def kernel_phase(device, timed=True, kernels=KERNELS):
     """K1 and K2 against their plain versions at each shape of
     ``KERNELS``, in float32 and, at the main shapes, in float64; prints one
-    ``kernel_check`` line per check and returns one record per kernel
-    (main shape).  The checks run first (phase 3, ``timed=False``: no
+    ``kernel_check`` line per check and returns one (entry, record) per
+    kernel at its main shape and one for K1 at the formation's x-update
+    (entry ``psd_solve_fleet``).  The checks run first (phase 3, ``timed=False``: no
     device times); the device times are taken at the end (``timed=True``),
     after the timed rollouts, so that no profiler session precedes those.
 
@@ -413,7 +454,7 @@ def kernel_phase(device, timed=True, kernels=KERNELS):
             H, G = spd_inputs(N, n, r, seed=N + n + r, device=device)
             kern, plain, args = _chol_call(pk, entry, H, G)
             var = variant(n, r, torch.float32) if variant else None
-            if variant and tag != "dense":
+            if variant and tag not in ("dense", "formation"):
                 check(var.startswith("reg"),
                       f"{name} {tag}: ran the {var} variant, not a register "
                       "class")
@@ -460,14 +501,20 @@ def kernel_phase(device, timed=True, kernels=KERNELS):
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
             print("kernel_check " + json.dumps(line), flush=True)
+            if tag in ("main", "formation"):
+                shape_rec = {"name": name, "route": "cuda", "source": SOURCE,
+                             "replaces": replaces, "launches": None,
+                             "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms,
+                             "bound_ms": line["bound_ms"],
+                             "bound_by": line["bound_by"],
+                             "library_ms": library_ms, "call_ms": call_ms,
+                             "variant": var, "shape": [N, n, r]}
             if tag == "main":
-                rec = {"name": name, "route": "cuda", "source": SOURCE,
-                       "replaces": replaces, "launches": None,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": line["bound_ms"],
-                       "bound_by": line["bound_by"],
-                       "library_ms": library_ms, "call_ms": call_ms,
-                       "variant": var, "shape": [N, n, r]}
+                rec = shape_rec
+            if tag == "formation":
+                records.append(("psd_solve_fleet",
+                                {**shape_rec, "name": K1_FLEET_NAME}))
             if tag == "main" and variant:
                 kernel_phase_f64(name, entry, N, n, r, device, timed)
         records.append((entry, rec))
@@ -518,7 +565,7 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main"):
 
 def k1_f64_record(device, launches, per_update):
     """The kernels-line record of K1 in float64 at Problem.solve's shape
-    (phase 13: device times), with the closed loop's launches (in all, and
+    (phase 15: device times), with the closed loop's launches (in all, and
     in each quadratic-mode update)."""
     N, n, r = K1_F64_SHAPE
     line = kernel_phase_f64(K1_F64_NAME, "psd_solve", N, n, r, device,
@@ -818,21 +865,276 @@ def closed_loop_phase(device):
     return k1_total, per_update
 
 
-def example_phase():
-    """examples_torch/p2p_holonomic.py in smoke mode (two updates) in a
+def example_phase(script="p2p_holonomic.py"):
+    """``examples_torch/<script>`` in smoke mode (two updates) in a
     process of its own, on the card."""
     t0 = time.time()
+    path = os.path.join("examples_torch", script)
     out = subprocess.run(
-        [sys.executable, os.path.join(HERE, "examples_torch",
-                                      "p2p_holonomic.py")],
+        [sys.executable, os.path.join(HERE, path)],
         env={**os.environ, "OMG_SMOKE": "1"}, capture_output=True,
         text=True, timeout=EXAMPLE_TIMEOUT_S, cwd=HERE)
-    line = {"example": "examples_torch/p2p_holonomic.py", "rc": out.returncode,
+    line = {"example": path, "rc": out.returncode,
             "seconds": time.time() - t0,
             "stdout": out.stdout.strip().splitlines()[-1:]}
     print("example " + json.dumps(line), flush=True)
-    check(out.returncode == 0,
-          f"examples_torch/p2p_holonomic.py failed: {out.stderr[-2000:]}")
+    check(out.returncode == 0, f"{path} failed: {out.stderr[-2000:]}")
+
+
+def build_formation(T, device):
+    """bench.py's formation_holonomic scene (bench.py:136-157): four
+    Holonomic vehicles on a 0.2 m square formation from (-1.5, -1.5) to
+    (2, 2), a 5 m room, a 0.4 m circle at (1.5, 0.5), 10 s horizon, rho
+    0.5, the host loop off (the runners below drive the device loop)."""
+    from omg_tools_torch.environment.shapes import RegularPolyhedron
+    vehicles = [T.Holonomic() for _ in range(FLEET_N)]
+    fleet = T.Fleet(vehicles)
+    configuration = RegularPolyhedron(0.2, FLEET_N, np.pi / 4).vertices.T
+    fleet.set_configuration(configuration.tolist())
+    fleet.set_initial_conditions(
+        (np.array([-1.5, -1.5]) + configuration).tolist())
+    fleet.set_terminal_conditions(
+        (np.array([2.0, 2.0]) + configuration).tolist())
+    env = T.Environment(room={"shape": T.Square(5.0)})
+    env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]},
+                                shape=T.Circle(0.4)))
+    problem = T.FormationPoint2point(
+        fleet, env, options={"horizon_time": 10, "verbose": 0,
+                             "rho": FLEET_RHO, "device_loop": False,
+                             "device": device})
+    problem.init()
+    return problem, np.array([2.0, 2.0]) + configuration
+
+
+def _newton_inputs(runner, carry):
+    """One x-update's generic Newton step arguments (group 0), as
+    ``_solve_groups`` hands them to the solver."""
+    import torch
+    g = runner._g[0]
+    X, st, P = carry.X[0], carry.st[0], carry.Pp[0].clone()
+    P[:, g["i_z"]] = carry.Z[g["edges"]].reshape(X.shape[0], -1)
+    P[:, g["i_l"]] = carry.L[g["rows"]].reshape(X.shape[0], -1)
+    solver = g["solver"]
+    lb, ub = solver.scale_bounds(g["lb"], g["ub"], X.dtype, X.device)
+    rho = torch.clamp(st.rho, max=runner.alm_rho_cap)
+    return solver, (X, st.lam, rho, lb, ub, P)
+
+
+def newton_timing(runner, carry):
+    """A generic Newton iteration of the formation's x-update (B = 4 lanes,
+    float32) two ways, each as wall time from the card idle to the card
+    idle over NEWTON_REPS calls: the CUDA graph the solver replays
+    (``CapturedCall``: one launch a kernel, no host work) and the same
+    step eager.  The captured step must equal the eager one bit for
+    bit."""
+    import torch
+    from omg_tools_torch.ops.alm import CapturedCall
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    solver, args = _newton_inputs(runner, carry)
+    eager = solver.generic_step(*args)
+    graphed = CapturedCall(solver.generic_step, args)
+    replayed = [o.clone() for o in graphed(*args)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(eager, replayed))
+
+    def per_rep(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NEWTON_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / NEWTON_REPS
+    graph_ms = per_rep(lambda: graphed(*args))
+    eager_ms = per_rep(lambda: solver.generic_step(*args))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(*args)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    line = {"B": int(args[0].shape[0]), "n_x": int(args[0].shape[1]),
+            "dtype": str(args[0].dtype), "captured_ms": graph_ms,
+            "eager_ms": eager_ms,
+            "kernels_per_captured_step": kernels,
+            "k1_launches_per_step": graphed.k1_launches,
+            "captured_equals_eager": same}
+    print("newton_iteration " + json.dumps(line), flush=True)
+    check(same, "the captured Newton step differs from the eager one")
+    check(graphed.k1_launches == 1,
+          f"a captured step holds {graphed.k1_launches} K1 launches")
+    check(graph_ms <= NEWTON_MS_GATE,
+          f"a generic Newton iteration takes {graph_ms} ms")
+    return line
+
+
+def _trace_admm_iteration(runner, carry):
+    """One ADMM iteration traced: the device's kernel time over the same
+    iteration's untraced wall time, and the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    it = runner.iterate_fn(1)
+    untraced_ms = timed_call_ms(lambda: it(carry))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms = timed_call_ms(lambda: it(carry))
+    kernel_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("alm."):
+            kernel_us += e.self_device_time_total
+            kernels += e.count
+    out = {"untraced_ms": untraced_ms, "traced_ms": traced_ms,
+           "device_kernel_ms": kernel_us / 1e3,
+           "device_busy_share": kernel_us / 1e3 / untraced_ms,
+           "kernels_launched": kernels}
+    print("formation_profile " + json.dumps(out), flush=True)
+    check(kernel_us > 0, "the traced ADMM iteration shows no device time")
+    return out
+
+
+def _carry_to(carry, device):
+    import torch
+    return torch.utils._pytree.tree_map(
+        lambda a: a.to(device) if isinstance(a, torch.Tensor) else a, carry)
+
+
+def formation_phase(T, device):
+    """Phase 14: bench.py's formation_holonomic on the card in float32
+    through the port's FleetRunner (K1 in every x-update), with bench.py's
+    fields, the float64 runs it is held to, the traced iteration, the
+    Newton-iteration timing and the example.  Returns K1's launches over
+    the float32 main run, per ADMM iteration and per x-update."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.parallel import FleetRunner
+    t_setup = time.time()
+    problem, goals = build_formation(T, device)
+    tr = problem.template.transcription
+    check(problem.template._structure == "generic",
+          f"template structure {problem.template._structure}")
+    runner = FleetRunner(problem, dtype=torch.float32,
+                         outer_iter=FLEET_OUTER, device=device)
+    check(len(problem.groups) == 1,
+          f"{len(problem.groups)} vehicle groups: one x-update an iteration "
+          "is expected")
+    zero_launch_counts()
+    carry = runner.make_state(0.0)
+    k1_cold = pk.psd_solve.launches
+    it = runner.iterate_fn(ADMM_ITERS)
+    carry_w, (pri, dua) = it(carry)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_setup
+    t0 = time.perf_counter()
+    carry_w, (pri, dua) = it(carry)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # K1's launches in each x-update (the one group's solve of an ADMM
+    # iteration): single iterations on from the warm carry
+    k1, c, one = [], carry_w, runner.iterate_fn(1)
+    for _ in range(ADMM_ITERS):
+        before = pk.psd_solve.launches
+        c, _ = one(c)
+        k1.append(pk.psd_solve.launches - before)
+    carry2, _ = it(carry)
+    roll = runner.rollout_fn(FLEET_STEPS, iters_per_update=1)
+    roll(carry2)
+    torch.cuda.synchronize()
+    before = pk.psd_solve.launches
+    t0 = time.perf_counter()
+    _, out = roll(carry2)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    k1_roll = pk.psd_solve.launches - before
+    counts = launch_counts()
+    check(counts["psd_solve_multi"] == 0 and counts["fused_inner"] == 0,
+          f"the formation launched {counts}")
+    # after the cold solves: 4 x 20 iterations + 2 x 20 periods (one
+    # iteration a period)
+    n_admm = 4 * ADMM_ITERS + 2 * FLEET_STEPS
+    check(all(n > 0 for n in k1), f"K1 launches per x-update {k1}")
+    # every x-update of the rollout runs at least one outer round, a K1
+    # launch a Newton step
+    inner = problem.template._solver.options.inner_iter
+    check(k1_roll >= FLEET_STEPS * inner,
+          f"{k1_roll} K1 launches over {FLEET_STEPS} rollout periods")
+    pri = pri.cpu().numpy().astype(np.float64)
+    dua = dua.cpu().numpy().astype(np.float64)
+    consensus_rms_m = float(pri[-1] / np.sqrt(2 * runner.N * runner.n_sh))
+    states = out["states"].cpu().numpy().astype(np.float64)
+    d0 = np.linalg.norm(states[:, 0] - goals, axis=1)
+    d1 = np.linalg.norm(states[:, -1] - goals, axis=1)
+    line = {
+        "metric": "formation_holonomic_admm_iterations_per_s",
+        "value": ADMM_ITERS / run_s, "unit": "iterations/s",
+        "fleet_n": FLEET_N, "device": torch.cuda.get_device_name(0),
+        "n_x": tr.n_x, "n_g": tr.n_g, "n_p": tr.n_p, "n_sh": runner.n_sh,
+        "residual_curve_pri": pri.tolist(),
+        "residual_curve_dua": dua.tolist(),
+        "residual_decrease": float(pri[0] / max(pri[-1], 1e-12)),
+        "consensus_rms_m": consensus_rms_m,
+        "consensus_ok": consensus_rms_m < CONSENSUS_GATE_M,
+        "rollout_periods_per_s": FLEET_STEPS / roll_s,
+        "rollout_pri": out["pri"].cpu().numpy().tolist(),
+        "goal_distance_start": d0.tolist(), "goal_distance_end": d1.tolist(),
+        "setup_s": setup_s, "run_s": run_s, "rollout_s": roll_s,
+        "k1_launches": counts["psd_solve"], "admm_iterations": n_admm,
+        "k1_launches_per_admm_iteration":
+            (counts["psd_solve"] - k1_cold) / n_admm,
+        "k1_launches_per_x_update_min_max": [min(k1), max(k1)],
+        "k1_launches_per_rollout_period": k1_roll / FLEET_STEPS}
+    print("formation " + json.dumps(line), flush=True)
+    check(bool(np.isfinite(pri).all() and np.isfinite(states).all()),
+          "non-finite formation residuals or states")
+    check(consensus_rms_m < CONSENSUS_GATE_M,
+          f"consensus rms {consensus_rms_m} m")
+    check(bool((d1 < d0 - FLEET_PROGRESS_M).all()),
+          f"no progress to the goals: {d0} -> {d1}")
+    launches = counts["psd_solve"]
+
+    newton = newton_timing(runner, carry_w)
+    _trace_admm_iteration(runner, carry_w)
+
+    # float64 on the card from its own cold state; K1 in float64 at 4 x 85
+    kernel_phase_f64(K1_FLEET_NAME, "psd_solve", *K1_FLEET_SHAPE, device,
+                     timed=False, shape="formation")
+    runner64 = FleetRunner(problem, dtype=torch.float64,
+                           outer_iter=FLEET_OUTER, device=device)
+    k1_before = pk.psd_solve.launches
+    carry64 = runner64.make_state(0.0)
+    c64_2, _ = runner64.iterate_fn(FLEET_CPU_ITERS)(carry64)
+    c64, _ = runner64.iterate_fn(ADMM_ITERS)(carry64)
+    torch.cuda.synchronize()
+    k1_f64 = pk.psd_solve.launches - k1_before
+    check(k1_f64 > 0, "the float64 formation launched no K1")
+    err32 = float((carry_w.Z.double() - c64.Z).abs().max())
+    # the float64 CPU run from the card's float64 cold state
+    cpu = torch.device("cpu")
+    runner_cpu = FleetRunner(problem, dtype=torch.float64,
+                             outer_iter=FLEET_OUTER, device=cpu)
+    carry_cpu = _carry_to(carry64, cpu)
+    t0 = time.time()
+    cc, _ = runner_cpu.iterate_fn(FLEET_CPU_ITERS)(carry_cpu)
+    cpu_s = time.time() - t0
+    rng = np.random.default_rng(0)
+    moved = carry_cpu._replace(X=tuple(
+        x * (1.0 + F64_PERTURB * torch.as_tensor(
+            rng.standard_normal(tuple(x.shape)), dtype=x.dtype))
+        for x in carry_cpu.X))
+    cp, _ = runner_cpu.iterate_fn(FLEET_CPU_ITERS)(moved)
+    err_cpu = float((c64_2.Z.cpu() - cc.Z).abs().max())
+    sens = float((cp.Z - cc.Z).abs().max())
+    check_line = {"f32_vs_f64_card_Z": err32, "iterations": ADMM_ITERS,
+                  "f64_card_vs_cpu_Z": err_cpu,
+                  "cpu_iterations": FLEET_CPU_ITERS,
+                  "cpu_sensitivity_1e-15": sens, "cpu_s": cpu_s,
+                  "k1_f64_launches": k1_f64, "tol_m": FLEET_PARITY_M}
+    print("formation_check " + json.dumps(check_line), flush=True)
+    check(err32 < FLEET_PARITY_M, f"float32 vs float64 Z: {err32} m")
+    check(err_cpu < FLEET_PARITY_M, f"card vs CPU float64 Z: {err_cpu} m")
+
+    # the example, in a process of its own
+    example_phase("formation_holonomic.py")
+    return launches, line["k1_launches_per_admm_iteration"], newton
 
 
 def k3_work(plan, B, n_inner, n_cands, phase=0):
@@ -1231,7 +1533,7 @@ def config_phases(T, device, config, cache_root, B=BATCH):
     its own: setup, K3 checks, the main path, the compact-arrow path and
     the cross-check.  Returns the kernels-line entries (K3 at the plan's
     main shape; K1 and K2 at its compact-arrow shapes, their device times
-    taken in phase 14) and K3's timers."""
+    taken in phase 15) and K3's timers."""
     import torch
     c = CONFIGS[config]
     os.environ["OMG_CACHE_DIR"] = tempfile.mkdtemp(prefix=config + "_",
@@ -1587,11 +1889,16 @@ def run(cache_root):
     example_phase()
     # phase 13: the other bench configurations
     done = [config_phases(T, device, c, cache_root) for c in CONFIGS]
-    # phase 14: device times, after every timed run
+    # phase 14: bench.py's formation_holonomic
+    launches["psd_solve_fleet"], k1_per_iteration, _ = formation_phase(
+        T, device)
+    # phase 15: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
     k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
+        if entry == "psd_solve_fleet":
+            rec["launches_per_admm_iteration"] = k1_per_iteration
     records.append(("psd_solve", k1_f64_record(device, k1_f64_launches,
                                                k1_f64_per_update)))
     for c_k3, c_timers, chol, ca in done:

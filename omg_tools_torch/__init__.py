@@ -9,6 +9,8 @@ The port imports torch and numpy, never JAX nor anything of the JAX
 package.  Its entry points run on CUDA unless the caller passes
 ``device="cpu"`` (a problem: the ``device`` option).  So far it covers
 the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``),
+the distributed formation (``Fleet``, ``FormationPoint2point`` and the
+device loop ``omg_tools_torch.parallel.FleetRunner``),
 the Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins,
 Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the batched
 rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and p2p_dubins
@@ -28,6 +30,7 @@ from .environment.shapes import (Circle, Cylinder, Ring, Polyhedron, Beam,
 from .environment.environment import Environment
 from .environment.obstacle import Obstacle
 from .models.base import Vehicle
+from .models.fleet import Fleet
 from .models.holonomic import Holonomic
 from .models.holonomic1d import Holonomic1D
 from .models.holonomic3d import Holonomic3D
@@ -39,6 +42,8 @@ from .problems.problem import Problem
 from .problems.point2point import (Point2point, Point2pointProblem,
                                    FixedTPoint2point)
 from .problems.batch import BatchedP2PRunner
+from .problems.admm import ADMMProblem, DistributedProblem
+from .problems.formation import FormationPoint2point
 from .execution.simulator import Simulator, Deployer
 from .execution.plotlayer import PlotLayer
 from .ops.alm import ALMOptions, ALMState

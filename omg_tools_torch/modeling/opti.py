@@ -234,6 +234,16 @@ class Transcription:
             return torch.zeros((0,), dtype=x.dtype, device=x.device)
         return torch.cat(ctx.con_values)
 
+    def objective_and_constraints(self, x, p):
+        """(objective, constraints) from one replay."""
+        ctx = self._replay(x, p)
+        obj = ctx.objective
+        if not isinstance(obj, torch.Tensor):
+            obj = torch.zeros((), dtype=x.dtype, device=x.device) + obj
+        if not ctx.con_values:
+            return obj, torch.zeros((0,), dtype=x.dtype, device=x.device)
+        return obj, torch.cat(ctx.con_values)
+
     def bounds(self, t=0.0):
         """(lb, ub) numpy arrays with shutdown masking at host time t."""
         lb = self.lb.copy()

@@ -5,8 +5,6 @@ the plant's prediction and simulation for the closed loop (host numpy).
 
 Prediction and simulation use a fixed-step RK4 integrator with linear
 input interpolation between samples, as the JAX package does.
-
-Not ported yet: ``get_fleet_center`` (fleets).
 """
 
 from __future__ import annotations
@@ -224,6 +222,14 @@ class Vehicle(OptiChild, PlotLayer):
                         self.define_constraint(
                             (chck[k] + position[k]) - room_lims[k][1],
                             -BIG, 0.0)
+
+    def get_fleet_center(self, splines, rel_pos, substitute=True):
+        """The fleet center this vehicle perceives: its position splines
+        plus its offset ``rel_pos`` (formation consensus)."""
+        center = [s + rp for s, rp in zip(splines, rel_pos)]
+        if substitute:
+            return self.define_substitute("fleet_center", center)
+        return center
 
     # -- deployment --------------------------------------------------------
     def store(self, current_time, sample_time, spline_segments, segment_times,

@@ -8,10 +8,17 @@
 - inner minimization by Newton steps on H = W + rho J^T D J (D the
   active-row mask) and a parallel Armijo search over candidate step
   lengths, in one of these modes:
-  - generic: J, g and grad f by ``torch.func`` AD every iteration, the
-    Gauss-Newton H plus the objective's own Hessian (``hessian="gn"``,
-    solved with K1) or the saddle-free exact Newton step in the
-    eigenbasis of H (``hessian="eigh"``);
+  - generic: J, g, f, grad f and the objective's Hessian by ``torch.func``
+    AD every iteration, all from one forward-over-reverse evaluation of
+    (f, g) (one replay of a transcription, given ``fg``), and f and g at
+    every line-search candidate from one more; the Gauss-Newton H plus
+    the objective's own Hessian (``hessian="gn"``, solved with K1) or the
+    saddle-free exact Newton step in the eigenbasis of H
+    (``hessian="eigh"``).  On a CUDA device the Gauss-Newton mode's
+    Newton step and the outer round's constraint evaluation are CUDA
+    graphs, captured once a solver, batch size and dtype and replayed:
+    the evaluations' thousands of small ops cost one launch each
+    (``eigh`` synchronizes with the host, so that mode runs eagerly);
   - dense quadratic (``quadratic_Q``): g = c + A x + x'Q x with constant
     Q, so J and g are einsums with AD once per solve, and the line search
     is exact along the step;
@@ -38,16 +45,17 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, jvp, vmap
+from torch.func import grad, grad_and_value, hessian, jacfwd, jvp, vmap
 from torch.profiler import record_function
 
 from .solver import BIG
 from .compact import CompactWork
 from .fused_alm import fused_inner
 from .psd_kernels import psd_solve, psd_solve_multi
+from .spline import keep_device_constants
 
 __all__ = ["ALMState", "ALMOptions", "make_alm_solver",
-           "detect_quadratic_structure"]
+           "detect_quadratic_structure", "CapturedCall"]
 
 
 class ALMOptions(NamedTuple):
@@ -121,6 +129,39 @@ def detect_quadratic_structure(g, n_x, p_ref, x_probe=None, tol=1e-6,
     return Q
 
 
+class CapturedCall:
+    """``fn(*tensors) -> tuple of tensors`` captured in a CUDA graph on
+    static copies of its arguments: a call copies its arguments in and
+    replays the graph, and its outputs are the graph's own buffers,
+    overwritten by the next call.  One eager run on a side stream first
+    makes the device constants, libraries and handles that ``fn`` needs,
+    so that the capture copies nothing from the host: the host constants
+    it copies are kept (:func:`ops.spline.keep_device_constants`) as long
+    as the graph.  Nothing in ``fn`` may read a value back to the host.
+    K1's launches in a replay are counted at the replay
+    (``psd_solve.launches``); the capture launches nothing."""
+
+    def __init__(self, fn, args):
+        device = args[0].device
+        self.inputs = [a.clone() for a in args]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with keep_device_constants() as self.constants:
+            with torch.cuda.stream(side):
+                fn(*self.inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            before = psd_solve.captured
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+        self.k1_launches = psd_solve.captured - before
+
+    def __call__(self, *args):
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        psd_solve.launches += self.k1_launches
+        return self.outputs
 
 
 def make_alm_solver(f: Callable, g: Callable, n_x: int,
@@ -129,7 +170,8 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                     row_scale: Optional[np.ndarray] = None,
                     obj_scale: float = 1.0,
                     quadratic_Q: Optional[np.ndarray] = None,
-                    compact=None, fused_plan=None):
+                    compact=None, fused_plan=None,
+                    fg: Optional[Callable] = None):
     """Build ``solve(x0, p, lb, ub, state0=None, outer_iter=None, cA=None,
     Q=None, ct=None, fshared=None)`` minimizing f s.t. lb <= g <= ub over a
     batch: x0 (B, n), p (B, n_p), lb/ub (m,) in raw units and transcription
@@ -155,7 +197,10 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
     each outer round is one :func:`ops.fused_alm.fused_inner` call.
 
     Without ``compact`` or ``quadratic_Q`` the solver is generic: J, g, the
-    gradient and the objective's Hessian by AD at every iteration."""
+    gradient and the objective's Hessian by AD at every iteration.
+    ``fg(x, p) -> (f, g)`` gives both from one evaluation
+    (``Transcription.objective_and_constraints``); without it the generic
+    mode calls ``f`` and ``g`` apart."""
     lb0 = np.asarray(lb0, dtype=np.float64)
     m = lb0.shape[0]
     opt = options
@@ -176,23 +221,28 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
 
     def consts(dtype, device):
         """(d, 1/d in the solver's row order, row_perm, candidates, fused
-        pcols, Qs) on ``device``; made once per (dtype, device)."""
+        pcols, Qs) on ``device``; made once per (dtype, device), as plain
+        tensors even when first asked for under a torch.func transform
+        (a tensor lifted into a transform must not outlive it)."""
         key = (dtype, device)
         if key not in _cache:
             def t(a):
                 return None if a is None else torch.as_tensor(
                     a, dtype=dtype, device=device)
-            _cache[key] = (
-                t(d_np), t(inv_d_np),
-                None if row_perm is None else torch.as_tensor(
-                    row_perm, device=device),
-                t(np.asarray(opt.ls_candidates)),
-                None if fused_plan is None else torch.as_tensor(
-                    fused_plan.pcols, device=device),
-                t(Qs_np))
+            with torch._C._DisableFuncTorch():
+                _cache[key] = (
+                    t(d_np), t(inv_d_np),
+                    None if row_perm is None else torch.as_tensor(
+                        row_perm, device=device),
+                    t(np.asarray(opt.ls_candidates)),
+                    None if fused_plan is None else torch.as_tensor(
+                        fused_plan.pcols, device=device),
+                    t(Qs_np))
         return _cache[key]
 
     # the scaled functions of one scenario (the JAX solver's f and g)
+    fg_raw = fg if fg is not None else (
+        lambda x, p, f=f, g=g: (f(x, p), g(x, p)))   # the unscaled f, g
     if d_np is not None:
         f_raw, g_raw = f, g
 
@@ -202,8 +252,26 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
         def g(x, p):
             return consts(x.dtype, x.device)[0] * g_raw(x, p)
 
+        def fg(x, p):
+            fv, gv = fg_raw(x, p)
+            return obj_scale * fv, consts(x.dtype, x.device)[0] * gv
+    else:
+        fg = fg_raw
+
+    def derivatives(x, p):
+        """(f, g, grad f, J, Hess f) of one scenario from one
+        forward-over-reverse evaluation of (f, g)."""
+        def outer(x):
+            gf, (fv, gv) = grad_and_value(fg, has_aux=True)(x, p)
+            return torch.cat([gv, gf]), (fv, gv, gf)
+        jac, (fv, gv, gf) = jacfwd(outer, has_aux=True)(x)
+        # torch's forward mode gives a 0-dim tensor combined with a Python
+        # number a float64 tangent, whatever the tensor's dtype: bring
+        # the float32 derivatives back to the iterate's dtype
+        jac = jac.to(x.dtype)
+        return fv, gv, gf, jac[:m], jac[m:]
+
     grad_f = grad(f)
-    hess_f = hessian(f)
     jac_g = jacfwd(g)
 
     def lagrangian(x, p, lam):
@@ -286,24 +354,19 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                         f=lambda x: f0 + (x * gf).sum(-1),
                         gf=lambda x: gf, Qs=Qs)
 
-        def along(fn):
-            """fn over (B, L, n) points, the L points of a lane sharing
+        def fg_along(X):
+            """(f, g) at (B, L, n) points, the L points of a lane sharing
             its parameters."""
-            def call(X):
-                L = X.shape[1]
-                out = vmap(fn)(X.reshape(B * L, -1),
-                               p.repeat_interleave(L, dim=0))
-                return out.reshape((B, L) + out.shape[1:])
-            return call
+            L = X.shape[1]
+            fv, gv = vmap(fg)(X.reshape(B * L, -1),
+                              p.repeat_interleave(L, dim=0))
+            return fv.reshape(B, L), gv.reshape(B, L, -1)
 
         return dict(mode="generic", quadratic=False,
-                    g=lambda x: vmap(g)(x, p),
-                    J=lambda x: vmap(jac_g)(x, p),
-                    f=lambda x: vmap(f)(x, p),
-                    gf=lambda x: vmap(grad_f)(x, p),
-                    Hf=lambda x: vmap(hess_f)(x, p),
+                    g=lambda x: vmap(fg)(x, p)[1],
+                    derivatives=lambda x: vmap(derivatives)(x, p),
                     HL=lambda x, y: vmap(hess_L)(x, p, y),
-                    g_along=along(g), f_along=along(f))
+                    fg_along=fg_along)
 
     def arrow_newton_step(work, Jf, y_hat, active, rho):
         """Block-arrow Newton solve: factor every tail block with K2 (the
@@ -359,24 +422,27 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
 
         def expansion(dx):
             return work.Jd(Jf, dx), work.quad_dir(dx), dx @ work.gf(x)
-        return grad_, dx, gv, expansion
+        return grad_, dx, gv, evals["f"](x), expansion
 
     def newton_dense(evals, x, lam, rho, lb, ub):
         """The dense quadratic and generic modes' Newton step."""
         with record_function("alm.assemble"):
-            J = evals["J"](x)                                 # (B, m, n)
-            gv = evals["g_from_J"](x, J) if evals["quadratic"] \
-                else evals["g"](x)
+            if evals["quadratic"]:
+                J = evals["J"](x)                             # (B, m, n)
+                gv = evals["g_from_J"](x, J)
+                gf = evals["gf"](x)
+            else:
+                fx, gv, gf, J, Hf = evals["derivatives"](x)
             y_hat = multiplier_estimate(gv, lam, rho, lb, ub)
             Jt = J.transpose(1, 2)
-            grad_ = evals["gf"](x) + (Jt @ y_hat[:, :, None])[:, :, 0]
+            grad_ = gf + (Jt @ y_hat[:, :, None])[:, :, 0]
             active = (y_hat.abs() > 0.0).to(x.dtype)
             Hpen = rho[:, None, None] * ((Jt * active[:, None, :]) @ J)
         if opt.hessian == "gn":
             # Gauss-Newton: penalty curvature plus the objective's own
             # Hessian, which the quadratic mode's linear objective lacks
             if not evals["quadratic"]:
-                Hpen = Hpen + evals["Hf"](x)
+                Hpen = Hpen + Hf
             with record_function("alm.head_solve"):
                 dx = -psd_solve(ridged(Hpen).contiguous(), grad_.contiguous())
         else:
@@ -397,10 +463,12 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 dx = -(vecs @ (coef / ev_used)[:, :, None])[:, :, 0]
         expansion = None
         if evals["quadratic"]:
+            fx = evals["f"](x)
+
             def expansion(dx):
                 return ((J @ dx[:, :, None])[:, :, 0], evals["quad_dir"](dx),
-                        (evals["gf"](x) * dx).sum(-1))
-        return grad_, dx, gv, expansion
+                        (gf * dx).sum(-1))
+        return grad_, dx, gv, fx, expansion
 
     def inner_step(evals, x, lam, rho, lb, ub):
         """One Newton step per lane and the parallel Armijo search over the
@@ -408,7 +476,7 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
         quadratic, evaluated at every candidate otherwise)."""
         newton = newton_compact if evals["mode"] == "compact" \
             else newton_dense
-        grad_, dx, gv, expansion = newton(evals, x, lam, rho, lb, ub)
+        grad_, dx, gv, fx, expansion = newton(evals, x, lam, rho, lb, ub)
         with record_function("alm.line_search"):
             finite = torch.isfinite(dx).all(-1, keepdim=True)
             gnorm = torch.linalg.vector_norm(grad_, dim=-1, keepdim=True)
@@ -419,7 +487,6 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 max=1.0)[:, None]
             slope = (grad_ * dx).sum(-1)
             cands = consts(x.dtype, x.device)[3]
-            fx = evals["f"](x)
             m0 = fx + penalty_term(gv, lam, rho, lb, ub)
             if expansion is not None:
                 Jd, qd, df = expansion(dx)
@@ -429,8 +496,7 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 f_a = fx[:, None] + cands[None, :] * df[:, None]
             else:
                 X = x[:, None, :] + cands[None, :, None] * dx[:, None, :]
-                g_a = evals["g_along"](X)
-                f_a = evals["f_along"](X)
+                f_a, g_a = evals["fg_along"](X)
             mvals = f_a + penalty_term(g_a, lam[:, None, :], rho, lb, ub)
             ok = torch.isfinite(mvals) & (
                 mvals <= m0[:, None]
@@ -439,6 +505,26 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             alpha = torch.where(ok.any(-1), cands[pick],
                                 torch.zeros_like(cands[pick]))
             return x + alpha[:, None] * dx, grad_.abs().amax(-1)
+
+    def generic_step(x, lam, rho, lb, ub, p):
+        """One Newton step of the generic mode: the function that the
+        Gauss-Newton mode's CUDA graph captures."""
+        return inner_step(make_evals(p, x.dtype, x.device), x, lam, rho,
+                          lb, ub)
+
+    def generic_g(x, p):
+        return make_evals(p, x.dtype, x.device)["g"](x)
+
+    graphs = {}
+
+    def captured(x, lam, rho, lb, ub, p):
+        """The Gauss-Newton generic mode's step and constraint evaluation
+        as CUDA graphs, one pair a batch size, dtype and device."""
+        key = (x.shape[0], x.dtype, x.device)
+        if key not in graphs:
+            graphs[key] = (CapturedCall(generic_step, (x, lam, rho, lb, ub, p)),
+                           CapturedCall(generic_g, (x, p)))
+        return graphs[key]
 
     def solve(x0, p, lb, ub, state0: Optional[ALMState] = None,
               outer_iter: Optional[int] = None, cA=None, Q=None, ct=None,
@@ -472,6 +558,20 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
             evals = make_evals_compact(ct)
         else:
             evals = make_evals(p, dtype, device, cA=cA, Q=Q)
+        if evals is not None and evals["mode"] == "generic" \
+                and opt.hessian == "gn" and device.type == "cuda":
+            step_graph, g_graph = captured(x0, state.lam, state.rho, lb, ub,
+                                           p)
+
+            def step(x, lam, rho):
+                return step_graph(x, lam, rho, lb, ub, p)
+
+            def g_at(x):
+                return g_graph(x, p)
+        elif evals is not None:
+            def step(x, lam, rho):
+                return inner_step(evals, x, lam, rho, lb, ub)
+            g_at = evals["g"]
         # dtype-aware feasibility floor: in f32 the configured tolerance
         # sits below the roundoff of the scaled constraint evaluation
         feas_tol = max(opt.feas_tol, 1000.0 * torch.finfo(dtype).eps)
@@ -486,11 +586,10 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 x_n = st.x
                 stat = inf
                 for _ in range(opt.inner_iter):
-                    x_n, stat = inner_step(evals, x_n, st.lam, st.rho, lb,
-                                           ub)
+                    x_n, stat = step(x_n, st.lam, st.rho)
             with record_function("alm.outer_update"):
                 if evals is not None:
-                    gv = evals["g"](x_n)
+                    gv = g_at(x_n)
                 y_hat = multiplier_estimate(gv, st.lam, st.rho, lb, ub)
                 viol_rows = torch.clamp(lb - gv, min=0.0) \
                     + torch.clamp(gv - ub, min=0.0)
@@ -544,6 +643,10 @@ def make_alm_solver(f: Callable, g: Callable, n_x: int,
                 "row_viol": viol.cpu().numpy()}
 
     solve.options = opt
+    # the generic mode's Newton step, uncaptured, and its evaluations
+    # (tests and timing)
+    solve.generic_step = generic_step
+    solve.generic_evaluations = lambda x, p: make_evals(p, x.dtype, x.device)
     solve.scale_bounds = scale_bounds
     solve.diagnose = diagnose
     # the SCALED quadratic tensor (numpy), for callers that keep one copy

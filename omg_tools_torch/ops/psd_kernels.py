@@ -7,7 +7,10 @@ A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
 tensors (float32 or float64) it launches the hand-written Hopper kernel of
 ``csrc/chol_solve.cu`` in the variant that ``variant`` picks, and raises on
 what the kernel does not take.  Each wrapper counts its kernel launches in
-a plain integer attribute, ``launches``.
+a plain integer attribute, ``launches``; a K1 call made while a CUDA graph
+is being captured launches nothing and counts in ``psd_solve.captured``
+instead, and each replay of that graph adds its calls to ``launches``
+(``ops.alm.CapturedCall``).
 
 A system that is not positive definite gives non-finite output -- rsqrt of
 a non-positive pivot -- in both versions, never an error: the ALM's per-lane
@@ -128,7 +131,10 @@ def psd_solve(H, g):
     if N == 0:
         return out
     _launch(H, g, out, N, n, 1)
-    psd_solve.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        psd_solve.captured += 1     # launched by each replay of the graph
+    else:
+        psd_solve.launches += 1
     return out
 
 
@@ -153,4 +159,5 @@ def psd_solve_multi(D, G):
 
 
 psd_solve.launches = 0
+psd_solve.captured = 0
 psd_solve_multi.launches = 0

@@ -11,6 +11,8 @@ the rational/tensor-product splines are not needed by the ported path).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -20,10 +22,45 @@ __all__ = ["BSpline", "eval_basis_traced", "evalspline", "running_integral",
            "definite_integral", "sample_spline"]
 
 
-def _const(mat, like):
-    """Host numpy constant as a tensor matching ``like``'s dtype/device."""
-    return torch.as_tensor(np.asarray(mat), dtype=like.dtype,
-                           device=like.device)
+# While a CUDA graph is made (its warm-up run and its capture), the device
+# copies of host constants are kept by content, so that the capture finds
+# every constant on the device and copies nothing from the host.  The
+# graph holds the store: its constants live as long as it does.
+_kept = None
+
+
+@contextlib.contextmanager
+def keep_device_constants():
+    """Keep the device copies that ``_const`` makes inside this block, one
+    per content; yields the store, which the caller holds for as long as
+    it uses them."""
+    global _kept
+    outer = _kept
+    _kept = {} if outer is None else outer
+    try:
+        yield _kept
+    finally:
+        _kept = outer
+
+
+def _const(mat, like, dtype=None):
+    """Host constant (numpy, or a CPU tensor) as a tensor of ``like``'s
+    device and dtype (or ``dtype``); off the CPU and inside
+    :func:`keep_device_constants`, the kept copy."""
+    dtype = like.dtype if dtype is None else dtype
+    if like.device.type == "cpu" or _kept is None:
+        return torch.as_tensor(np.asarray(mat), dtype=dtype,
+                               device=like.device)
+    a = np.ascontiguousarray(mat)
+    key = (a.shape, a.dtype.str, a.tobytes(), dtype, like.device)
+    t = _kept.get(key)
+    if t is None:
+        # a plain tensor, even when made under a torch.func transform:
+        # a tensor lifted into the transform's level must not outlive it
+        with torch._C._DisableFuncTorch():
+            t = torch.as_tensor(a, dtype=dtype, device=like.device)
+        _kept[key] = t
+    return t
 
 
 def _as_tensor(v):
@@ -31,32 +68,85 @@ def _as_tensor(v):
         torch.as_tensor(np.asarray(v, dtype=np.float64))
 
 
+def _cox_de_boor_tables(basis: Basis, convert, key):
+    """The recursion's constants over all knot spans, each through
+    ``convert`` and made once per ``key`` on the basis: the knots k_i and
+    k_{i+1}, the left-closed mask of the first indicators (the clamped
+    head), one and zero and, for each degree r = 1..d, the knots k_i and
+    k_{i+r+1}, both spans (1 where a span is empty) and the masks of the
+    spans that are not empty."""
+    def compute():
+        k = np.array(basis.knots, dtype=np.float64)
+        d, nk = basis.degree, len(k)
+        closed = (np.arange(nk - 1) < d + 1) & (k[:-1] == k[0])
+        levels = []
+        for deg in range(1, d + 1):
+            i = np.arange(nk - deg - 1)
+            den1 = k[i + deg] - k[i]
+            den2 = k[i + deg + 1] - k[i + 1]
+            levels.append(tuple(convert(a) for a in (
+                k[i], k[i + deg + 1], np.where(den1 != 0.0, den1, 1.0),
+                np.where(den2 != 0.0, den2, 1.0), den1 != 0.0, den2 != 0.0)))
+        head = tuple(convert(a) for a in (k[:-1], k[1:], closed,
+                                          np.ones(()), np.zeros(())))
+        return head, levels
+    return basis._memoized(key, compute)
+
+
+def _cox_de_boor(t, tables, where):
+    """The recursion over all knot spans at once, for a torch tensor or a
+    numpy array ``t`` and tables of its type."""
+    (lo, hi, closed, one, zero), levels = tables
+    tt = t[..., None]
+    b = where(closed, tt >= lo, tt > lo) & (tt <= hi)
+    b = b * one
+    for k_lo, k_hi, den1, den2, has1, has2 in levels:
+        term1 = (tt - k_lo) * b[..., :-1] / den1
+        term2 = (k_hi - tt) * b[..., 1:] / den2
+        b = where(has1, term1, zero) + where(has2, term2, zero)
+    return b
+
+
 def eval_basis_traced(basis: Basis, t):
     """Cox-de Boor basis values at a tensor scalar ``t`` (possibly batched
-    under ``torch.func``).  Returns a (..., len(basis)) tensor."""
-    k = [float(v) for v in basis.knots]
-    d = basis.degree
+    under ``torch.func``).  Returns a (..., len(basis)) tensor.
+
+    Each degree is one pass over all knot spans, and each value is the
+    same sequence of IEEE operations as the span-by-span recursion:
+    (t - k_i) b_i / (k_{i+r} - k_i) + (k_{i+r+1} - t) b_{i+1} /
+    (k_{i+r+1} - k_{i+1}), a term left out where its span is empty.  The
+    tables live on the basis, one set per dtype and device."""
     t = _as_tensor(t)
-    nk = len(k)
-    b = []
-    for i in range(nk - 1):
-        if i < d + 1 and k[0] == k[i]:
-            b.append(((t >= k[i]) & (t <= k[i + 1])).to(t.dtype))
-        else:
-            b.append(((t > k[i]) & (t <= k[i + 1])).to(t.dtype))
-    for deg in range(1, d + 1):
-        nb = []
-        for i in range(nk - deg - 1):
-            val = torch.zeros_like(t)
-            denom = k[i + deg] - k[i]
-            if denom != 0.0:
-                val = (t - k[i]) * b[i] / denom
-            denom = k[i + deg + 1] - k[i + 1]
-            if denom != 0.0:
-                val = val + (k[i + deg + 1] - t) * b[i + 1] / denom
-            nb.append(val)
-        b = nb
-    return torch.stack(b, dim=-1)
+    dtype, device = t.dtype, t.device
+
+    def convert(a):
+        # a plain tensor, even when first made under a torch.func
+        # transform: the basis keeps it beyond the transform
+        with torch._C._DisableFuncTorch():
+            return torch.as_tensor(
+                a, dtype=torch.bool if a.dtype == bool else dtype,
+                device=device)
+    tables = _cox_de_boor_tables(basis, convert,
+                                 ("cox_de_boor", dtype, device))
+    return _cox_de_boor(t, tables, torch.where)
+
+
+_NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _basis_at(s, t):
+    """The basis values of spline ``s`` at ``t`` on its coefficients'
+    device and dtype.  A host number is evaluated on the host in that
+    dtype (the same IEEE operations) and its values taken as a constant."""
+    if isinstance(t, torch.Tensor):
+        return eval_basis_traced(s.basis, t.to(dtype=s.coeffs.dtype,
+                                               device=s.coeffs.device))
+    dt = _NUMPY_DTYPE[s.coeffs.dtype]
+    tables = _cox_de_boor_tables(
+        s.basis, lambda a: a if a.dtype == bool else a.astype(dt),
+        ("cox_de_boor", dt))
+    host = np.asarray(t, dtype=np.float64).astype(dt)
+    return _const(_cox_de_boor(host, tables, np.where), s.coeffs)
 
 
 class BSpline:
@@ -77,9 +167,8 @@ class BSpline:
         """Evaluate at static numpy points (returns (..., len(x))) or at a
         tensor scalar (returns (...,))."""
         if isinstance(x, torch.Tensor):
-            bvals = eval_basis_traced(self.basis, x.to(
-                dtype=self.coeffs.dtype, device=self.coeffs.device))
-            return torch.einsum("...i,i->...", self.coeffs, bvals)
+            return torch.einsum("...i,i->...", self.coeffs,
+                                _basis_at(self, x))
         x_arr = np.atleast_1d(np.asarray(x, dtype=np.float64))
         E = _const(self.basis.eval(x_arr), self.coeffs)   # (len(x), n)
         out = torch.einsum("ti,...i->...t", E, self.coeffs)
@@ -149,8 +238,7 @@ class BSpline:
 def evalspline(s: BSpline, t):
     """Evaluate a spline at a scalar t (a number or a tensor scalar), on
     the coefficients' device."""
-    bvals = eval_basis_traced(s.basis, _as_tensor(t).to(
-        dtype=s.coeffs.dtype, device=s.coeffs.device))
+    bvals = _basis_at(s, t)
     return torch.einsum("...i,...i->...", s.coeffs,
                         torch.broadcast_to(bvals, s.coeffs.shape))
 

@@ -17,7 +17,8 @@ first solve) and ``dtype`` (float64 by default, as in the JAX package)
 place the ALM's tensors; the scipy reference always runs in float64 on
 the CPU.
 
-Not ported yet: the ``ipm`` backend and fleets of more than one vehicle.
+A problem over several vehicles (a ``Fleet``) is the distributed
+problems' base (``problems.admm``).  Not ported yet: the ``ipm`` backend.
 """
 
 from __future__ import annotations
@@ -30,24 +31,13 @@ import torch
 from torch.func import grad, jacfwd
 
 from ..modeling.opti import OptiChild, OptiFather
+from ..models.fleet import get_fleet_vehicles
 from ..ops.solver import gradient_row_scales
 from ..utils import cache as _cache
 from ..execution.plotlayer import PlotLayer, mix_with_white
 from .batch import pin_full_f32, resolve_device
 
-__all__ = ["Problem", "get_fleet_vehicles"]
-
-
-def get_fleet_vehicles(fleet_or_vehicles):
-    """Normalize user input to (fleet, [vehicles]) for one vehicle."""
-    from ..models.base import Vehicle
-    if isinstance(fleet_or_vehicles, Vehicle):
-        return None, [fleet_or_vehicles]
-    vehicles = list(fleet_or_vehicles)
-    if len(vehicles) != 1 or not isinstance(vehicles[0], Vehicle):
-        raise NotImplementedError(
-            "omg_tools_torch supports problems with one vehicle so far")
-    return None, vehicles
+__all__ = ["Problem"]
 
 
 class Problem(OptiChild, PlotLayer):
@@ -141,7 +131,7 @@ class Problem(OptiChild, PlotLayer):
             self._solver = make_alm_solver(
                 f, g, tr.n_x, tr.lb, tr.ub, alm_options,
                 row_scale=row_scale, obj_scale=self._obj_scale,
-                quadratic_Q=quadratic_Q)
+                quadratic_Q=quadratic_Q, fg=tr.objective_and_constraints)
         self._shifted = False
         self._x_result = tr.initial_guess()
         self._ip_state = None

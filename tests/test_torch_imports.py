@@ -82,6 +82,52 @@ print("OK")
 """
 
 
+# bench.py's formation_holonomic: the fleet, the consensus-ADMM template
+# and one FleetRunner iteration, in a fresh interpreter
+_CHILD_FLEET = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+import omg_tools_torch as T
+from omg_tools_torch.environment.shapes import RegularPolyhedron
+from omg_tools_torch.parallel import FleetRunner
+vehicles = [T.Holonomic() for _ in range(4)]
+fleet = T.Fleet(vehicles)
+conf = RegularPolyhedron(0.2, 4, np.pi / 4).vertices.T
+fleet.set_configuration(conf.tolist())
+fleet.set_initial_conditions((np.array([-1.5, -1.5]) + conf).tolist())
+fleet.set_terminal_conditions((np.array([2.0, 2.0]) + conf).tolist())
+env = T.Environment(room={"shape": T.Square(5.0)})
+env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]}, shape=T.Circle(0.4)))
+problem = T.FormationPoint2point(fleet, env, options={
+    "horizon_time": 10, "verbose": 0, "rho": 0.5, "device": "cpu",
+    "solver_options": {"outer_iter": 1, "inner_iter": 1}})
+problem.init()
+runner = FleetRunner(problem, dtype=torch.float64, device="cpu",
+                     outer_iter=1)
+carry, (pri, dua) = runner.iterate_fn(1)(runner.make_state(0.0))
+assert pri.shape == (1,) and bool(torch.isfinite(pri).all())
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_runs_the_formation_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD_FLEET % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_subprocess_builds_other_bench_problems_without_jax():
     out = subprocess.run([sys.executable, "-c",
                           _CHILD_VEHICLES % (BANNED,)],

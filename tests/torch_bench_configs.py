@@ -101,9 +101,11 @@ def _layout_rows(layout, table):
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def one_torch_thread():
     """These eager solves are small: torch's intra-op threads only spin
-    beside the other test processes.  One thread for this module."""
+    beside the other test processes.  One thread for this module.  (The
+    name has no leading underscore, so that the configuration modules'
+    ``from torch_bench_configs import *`` takes this fixture too.)"""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
