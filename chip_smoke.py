@@ -98,17 +98,36 @@ Phases, in order; any failure raises and exits non-zero:
     same carry, beside the CPU run's own sensitivity to a 1e-15
     perturbation; then ``examples_torch/formation_holonomic.py`` in smoke
     mode in a process of its own;
-15. times: the device time of K1 and K2 at every shape of 3 and 13
-    (``device_ms``: the profiler's self CUDA time of the kernel's own name
-    over 20 launches, over 20) and of ``cholesky_ex`` + ``cholesky_solve``'s
-    kernels on the same inputs, K3's at both shapes of 6 and of each plan
-    of 13, and K1's in float64 at the closed loop's shape (1 x 151); taken
-    last, so that no profiler session but 9's (and 14's trace) precedes
-    the timed runs.
+16. the examples' free-time and rotating-obstacle closed loops in float64
+    on the card (``scene_loop``): p2p_dubins and p2p_bicycle
+    (``FreeTPoint2point``) and revolving_door (a rectangle rotating at
+    pi/6 rad/s), each through ``Problem.solve`` + ``Simulator`` in the
+    default generic mode at its full budget, to its stop criterion
+    (Dubins) or SCENE_UPDATES updates: K1 (float64, one n_x-row system a launch) in
+    every update, no K2 or K3; the update times, iterations, ms an
+    iteration, the final position against the goal; the first solve on a
+    cut budget against the CPU's, beside the CPU's own sensitivity; the
+    three examples' copies in ``examples_torch/`` in smoke mode.  Then
+    (``obstacle_phase``) the B = 4096, 20-step float32 rollouts at the
+    bench settings of bench.py's scene with its circle moving at a
+    per-scenario velocity (``make_batch(obstacle_states=)``: K3 must run,
+    K1 and K2 not) and of the obstraj example's spline-trajectory circle
+    (whatever structure K3's limits give it: ``compact-arrow``, its head
+    has 105 rows), each with the cross-check of 11 on 16 lanes;
+15. times (after 16): the device time of K1 and K2 at every shape of 3
+    and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
+    own name over 20 launches, over 20) and of ``cholesky_ex`` +
+    ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
+    6 and of each plan of 13, and K1's in float64 at the closed loop's
+    shape (1 x 151), at the formation's (4 x 85) and at phase 16's (1 x
+    n_x); taken last, so that no profiler session but 9's (and 14's
+    trace) precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
-that tree's kernels with the same yardstick.
+that tree's kernels with the same yardstick.  ``--scenes-only`` runs
+phases 1-3 (the checks), 16 and its K1 device times, and stops (no final
+line).
 
 The last two lines before the final one are the ``kernels`` JSON object and
 the card's name and power limit as nvidia-smi prints them; the final line
@@ -189,6 +208,34 @@ FLEET_PARITY_M = 0.02     # float32 card / float64 card / float64 CPU Z
 FLEET_CPU_ITERS = 2       # the CPU's float64 run (~1 s a Newton iteration)
 NEWTON_MS_GATE = 100.0    # a generic Newton iteration of the x-update
 NEWTON_REPS = 10
+# phase 16: the examples' free-time (p2p_dubins, p2p_bicycle) and
+# rotating-obstacle (revolving_door) closed loops in float64, the default
+# generic mode at its full budget (20 outer x 16 inner), at most
+# SCENE_UPDATES updates each: Dubins to its stop criterion (~75 updates,
+# ~1.2 s each), the others cut for the script's time (their motions take
+# ~90-100 updates at 1-1.35 s); a loop that stops must end within
+# SCENE_GOAL_M of its goal
+SCENE_LOOPS = ("p2p_dubins", "revolving_door", "p2p_bicycle")
+SCENE_UPDATES = {"p2p_dubins": 120, "revolving_door": 12, "p2p_bicycle": 12}
+SCENE_GOAL_M = 0.05
+# the first solve on the card against the CPU's from the same inputs, on
+# a cut budget (a full-budget solve on the CPU takes ~0.3 s a Newton
+# iteration x 320), beside the CPU solve's own move under a 1e-15
+# perturbation of its start: within 4x that move (as in
+# tests/test_torch_free_time.py), or SCENE_FLOOR where rounding alone
+# separates them.  Both start from the
+# first solve's x0 plus a seeded 1e-2: the straight-line guess puts rows
+# on their bounds, where the CPU's own 8-iteration solve moves by 0.7-2.5
+# under a 1e-15 move of its start (measured on a CPU)
+SCENE_CHECK_BUDGET = {"outer_iter": 1, "inner_iter": 8}
+SCENE_CHECK_NOISE = 1e-2
+SCENE_SPREAD_FACTOR = 4.0
+SCENE_FLOOR = 1e-8
+# the batched runs with moving obstacles: bench.py's p2p_holonomic with
+# its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
+# 0-0.2 m/s, as the warehouse example's obstacles move, direction
+# uniform), and the obstraj example's spline-trajectory circle
+OBSTACLE_SPEED_MAX = 0.2
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
 # cores and the f64 rate through them (IEEE float64; 34e12 outside them):
@@ -563,14 +610,16 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main"):
     return line
 
 
-def k1_f64_record(device, launches, per_update):
-    """The kernels-line record of K1 in float64 at Problem.solve's shape
-    (phase 15: device times), with the closed loop's launches (in all, and
-    in each quadratic-mode update)."""
-    N, n, r = K1_F64_SHAPE
-    line = kernel_phase_f64(K1_F64_NAME, "psd_solve", N, n, r, device,
-                            timed=True, shape="problem_solve")
-    return {"name": K1_F64_NAME, "route": "cuda", "source": K1_F64_SOURCE,
+def k1_f64_record(device, launches, per_update, name=K1_F64_NAME,
+                  shape=K1_F64_SHAPE, tag="problem_solve"):
+    """The kernels-line record of K1 in float64 at one of its shapes
+    (phase 15: device times; by default Problem.solve's on the bench
+    scene), with the launches of the path that runs it (in all, and in
+    each of its updates or iterations)."""
+    N, n, r = shape
+    line = kernel_phase_f64(name, "psd_solve", N, n, r, device,
+                            timed=True, shape=tag)
+    return {"name": name, "route": "cuda", "source": K1_F64_SOURCE,
             "replaces": KERNELS[0][2], "launches": launches,
             "max_abs_err": line["max_abs_err"], "ms": line["ms"],
             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
@@ -582,7 +631,11 @@ def k1_f64_record(device, launches, per_update):
 
 def build_problem(T, config="p2p_holonomic"):
     """bench.py's scene of ``config``, letter for letter
-    (bench.py:233-277)."""
+    (bench.py:233-277), or phase 16's ``obstraj`` scene; initialized."""
+    if config == "obstraj":
+        problem = build_scene(T, config)
+        problem.init()
+        return problem
     if config == "p2p_dubins":
         vehicle = T.Dubins(shapes=T.Circle(0.1),
                            options={"substitution": True},
@@ -616,6 +669,71 @@ def build_problem(T, config="p2p_holonomic"):
     problem = T.Point2point(vehicle, environment, freeT=False)
     problem.set_options({"verbose": 0})
     problem.init()
+    return problem
+
+
+def build_scene(T, scene, options=None):
+    """One of the example scenes of phase 16 in the package ``T`` (the
+    port, or in the tests the JAX package), not yet initialized:
+    ``p2p_dubins`` and ``p2p_bicycle`` (free time), ``revolving_door`` (a
+    rectangle rotating at pi/6 rad/s, fixed time) and ``obstraj`` (a
+    rectangle and a circle on a caller-given spline trajectory), as the
+    examples of the same names build them (examples/p2p_dubins.py,
+    p2p_bicycle.py, revolving_door.py, p2p_holonomic_obstraj_export.py)."""
+    if scene == "p2p_dubins":
+        vehicle = T.Dubins(bounds={"vmax": 0.7, "wmax": np.pi / 3,
+                                   "wmin": -np.pi / 3})
+        vehicle.define_knots(knot_intervals=5)
+        vehicle.set_initial_conditions([0.0, 0.0, 0.0])
+        vehicle.set_terminal_conditions([3.0, 3.0, 0.0])
+        env = T.Environment(room={"shape": T.Square(5.0),
+                                  "position": [1.5, 1.5]})
+        env.add_obstacle(T.Obstacle({"position": [1.0, 1.0]},
+                                    shape=T.Circle(0.5)))
+        freeT = True
+    elif scene == "p2p_bicycle":
+        vehicle = T.Bicycle(length=0.4, bounds={"vmax": 0.8,
+                                                "dmax": np.pi / 6,
+                                                "dmin": -np.pi / 6})
+        vehicle.define_knots(knot_intervals=5)
+        vehicle.set_initial_conditions([0.0, 0.0, 0.0, 0.0])
+        vehicle.set_terminal_conditions([3.0, 3.0, 0.0])
+        env = T.Environment(room={"shape": T.Square(5.0),
+                                  "position": [1.5, 1.5]})
+        env.add_obstacle(T.Obstacle({"position": [1.0, 1.0]},
+                                    shape=T.Circle(0.4)))
+        freeT = True
+    elif scene == "revolving_door":
+        vehicle = T.Holonomic()
+        vehicle.set_initial_conditions([-1.8, -1.8])
+        vehicle.set_terminal_conditions([2.0, 2.0])
+        env = T.Environment(room={"shape": T.Square(5.0)})
+        env.add_obstacle(T.Obstacle(
+            {"position": [0.0, 0.0], "angular_velocity": np.pi / 6.0},
+            shape=T.Rectangle(width=1.6, height=0.25),
+            options={"horizon_time": 10.0}))
+        freeT = False
+    elif scene == "obstraj":
+        vehicle = T.Holonomic(options={"safety_distance": 0.1})
+        vehicle.set_initial_conditions([-1.5, -1.5])
+        vehicle.set_terminal_conditions([2.0, 2.0])
+        n_b = len(vehicle.basis)
+        # drift from (1.5, 0.5) toward (0.5, 0.9) over the horizon
+        coeffs = np.stack([np.linspace(1.5, 0.5, n_b),
+                           np.linspace(0.5, 0.9, n_b)], axis=1)
+        env = T.Environment(room={"shape": T.Square(5.0)})
+        env.add_obstacle(T.Obstacle({"position": [1.7, -0.5]},
+                                    shape=T.Rectangle(width=3.0, height=0.2)))
+        obstacle = T.Obstacle({"position": [1.5, 0.5]}, shape=T.Circle(0.4))
+        obstacle.set_options({"spline_traj": True, "spline_params": {
+            "knots": vehicle.basis.knots, "degree": vehicle.basis.degree,
+            "coeffs": coeffs}})
+        env.add_obstacle(obstacle)
+        freeT = False
+    else:
+        raise ValueError(f"unknown scene {scene!r}")
+    problem = T.Point2point(vehicle, env, freeT=freeT)
+    problem.set_options({"verbose": 0, **(options or {})})
     return problem
 
 
@@ -1003,7 +1121,8 @@ def formation_phase(T, device):
     through the port's FleetRunner (K1 in every x-update), with bench.py's
     fields, the float64 runs it is held to, the traced iteration, the
     Newton-iteration timing and the example.  Returns K1's launches over
-    the float32 main run, per ADMM iteration and per x-update."""
+    the float32 main run and per ADMM iteration, the Newton-step timing
+    and K1's launches in the float64 card run."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
     from omg_tools_torch.parallel import FleetRunner
@@ -1134,7 +1253,180 @@ def formation_phase(T, device):
 
     # the example, in a process of its own
     example_phase("formation_holonomic.py")
-    return launches, line["k1_launches_per_admm_iteration"], newton
+    return launches, line["k1_launches_per_admm_iteration"], newton, k1_f64
+
+
+def scene_loop(T, device, scene):
+    """Phase 16 (a): one example scene's closed loop (``Problem.solve`` +
+    ``Simulator``) in float64 on the card in the default generic mode,
+    SCENE_UPDATES[scene] updates or to its stop criterion, the launch
+    counters zeroed before and read after each update (K1 in every one, no
+    K2 or K3); then its first solve on a cut budget against the CPU's
+    from the same inputs.  Returns the loop's line."""
+    import torch
+    from omg_tools_torch import Simulator
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.ops.alm import ALMOptions, make_alm_solver
+    t0 = time.time()
+    problem = build_scene(T, scene, {"device": device})
+    problem.init()
+    init_s = time.time() - t0
+    tr = problem.transcription
+    check(problem._structure == "generic",
+          f"{scene}: structure {problem._structure}")
+    solver, calls = problem._solver, []
+
+    def record(*args, **kwargs):
+        calls.append((args, solver(*args, **kwargs)))
+        return calls[-1][1]
+    problem._solver = record
+    vehicle = problem.vehicles[0]
+    goal = np.asarray(vehicle.poseT, np.float64)[:2]
+    sim = Simulator(problem)
+    wall_ms, k1, iters, feas, stopped = [], [], [], [], False
+    for _ in range(SCENE_UPDATES[scene]):
+        zero_launch_counts()
+        t1 = time.perf_counter()
+        stopped = sim.update()
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t1))
+        c = launch_counts()
+        check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
+              f"{scene}: the closed loop launched {c}")
+        k1.append(c["psd_solve"])
+        iters.append(problem.solver_stats["iterations"])
+        feas.append(problem.solver_stats["feas"])
+        if stopped:
+            break
+    pose = np.asarray(vehicle.signals["pose"], np.float64)
+    d_start = float(np.linalg.norm(pose[:2, 0] - goal))
+    d_end = float(np.linalg.norm(pose[:2, -1] - goal))
+    solve_ms = [1e3 * t for t in problem.update_times]
+    n_it = sum(int(st.n_iter.sum()) for _, st in calls)
+    x = calls[-1][1].x
+    line = {"scene": scene, "problem": type(problem).__name__,
+            "structure": problem._structure,
+            "n_x": tr.n_x, "n_g": tr.n_g, "n_p": tr.n_p,
+            "k1_variant": pk.variant(tr.n_x, 1, torch.float64),
+            "updates": len(wall_ms), "stopped": stopped, "init_s": init_s,
+            "solve_ms": solve_ms,
+            "solve_ms_p50": float(np.median(solve_ms)),
+            "solve_ms_max": float(np.max(solve_ms)),
+            "update_wall_ms_p50": float(np.median(wall_ms)),
+            "update_wall_ms_max": float(np.max(wall_ms)),
+            "iterations": iters, "solver_calls": len(calls),
+            "ms_per_iteration": sum(wall_ms) / max(n_it, 1),
+            "k1_launches_per_update": k1, "feas": feas,
+            "goal": goal.tolist(), "final_position": pose[:2, -1].tolist(),
+            "goal_distance_start": d_start, "goal_distance_end": d_end,
+            "dtype": str(x.dtype), "device": str(x.device)}
+    if problem.__class__.__name__ == "FreeTPoint2point":
+        line["motion_time_left_s"] = float(
+            problem.get_variables(problem, "T")[0])
+    print("scene_loop " + json.dumps(line), flush=True)
+    check(all(k > 0 for k in k1), f"{scene}: an update launched no K1: {k1}")
+    check(x.is_cuda and x.dtype == torch.float64,
+          f"{scene}: solved on {x.device} in {x.dtype}")
+    check(bool(np.isfinite(pose).all()), f"{scene}: non-finite poses")
+    check(d_end < d_start, f"{scene}: no progress: {d_start} -> {d_end}")
+    check(d_end < SCENE_GOAL_M or not stopped,
+          f"{scene}: stopped {d_end} m from the goal")
+
+    # the first solve on the cut budget: the card against the CPU
+    x0, p, lb, ub = calls[0][0][:4]
+    gen = torch.Generator().manual_seed(0)
+    x0 = x0 + SCENE_CHECK_NOISE * torch.randn(
+        x0.shape, generator=gen, dtype=x0.dtype).to(x0.device)
+
+    def cut_solve(x0_, p_):
+        cut = make_alm_solver(
+            tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub,
+            ALMOptions(**SCENE_CHECK_BUDGET), row_scale=problem._row_scale,
+            obj_scale=problem._obj_scale, fg=tr.objective_and_constraints)
+        return cut(x0_, p_, lb, ub).x.double().cpu().numpy()
+    card = cut_solve(x0, p)
+    t1 = time.time()
+    cpu = cut_solve(x0.cpu(), p.cpu())
+    cpu_s = time.time() - t1
+    noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
+    moved = cut_solve(x0.cpu() * (1 + F64_PERTURB * noise), p.cpu())
+    err = float(np.abs(card - cpu).max())
+    sens = float(np.abs(moved - cpu).max())
+    tol = max(SCENE_SPREAD_FACTOR * sens, SCENE_FLOOR)
+    check_line = {"scene": scene, "budget": SCENE_CHECK_BUDGET,
+                  "card_vs_cpu_max_abs_x": err,
+                  "cpu_sensitivity_1e-15": sens, "tol": tol,
+                  "cpu_s": cpu_s}
+    print("scene_check " + json.dumps(check_line), flush=True)
+    check(err <= tol, f"{scene}: card vs CPU first solve {err} > {tol}")
+    return line
+
+
+def scene_phase(T, device, cache_root):
+    """Phase 16: the three closed loops, the examples' port copies in
+    smoke mode, and the batched obstacle runs.  Returns the loops'
+    lines."""
+    loops = {scene: scene_loop(T, device, scene) for scene in SCENE_LOOPS}
+    for scene in SCENE_LOOPS:
+        example_phase(scene + ".py")
+    obstacle_phase(T, device, cache_root)
+    return loops
+
+
+def moving_obstacle_states(B, seed=0):
+    """(pos, vel, acc) of bench.py's three obstacles for B scenarios:
+    both rectangles fixed at their bench positions, the 0.4 m circle from
+    its bench position at a speed uniform in 0-OBSTACLE_SPEED_MAX m/s in a
+    uniform direction (numpy seed 0)."""
+    rng = np.random.default_rng(seed)
+    speed = rng.uniform(0.0, OBSTACLE_SPEED_MAX, B)
+    heading = rng.uniform(0.0, 2 * np.pi, B)
+    zero = np.zeros((B, 2))
+    vel = np.stack([speed * np.cos(heading), speed * np.sin(heading)], 1)
+    return [(np.tile(pos, (B, 1)), v, zero)
+            for pos, v in (([-2.1, -0.5], zero), ([1.7, -0.5], zero),
+                           ([1.5, 0.5], vel))]
+
+
+def obstacle_phase(T, device, cache_root):
+    """Phase 16 (b) and (c): the B = 4096, 20-step float32 rollouts at the
+    bench settings (a) of bench.py's scene with the circle moving at a
+    per-scenario velocity (``make_batch(obstacle_states=)``; the fused
+    structure: K3, not K1 or K2) and (b) of the obstraj example's scene
+    (a spline-trajectory circle; the structure K3's limits allow), one
+    counted and one timed run each, and the cross-check of phase 11 on
+    CONFIG_CROSS_LANES lanes.  Returns the structures' launches."""
+    import torch
+    os.environ["OMG_CACHE_DIR"] = cache_root
+    out = {}
+    runner, consts, starts, goals, *_, setup_s, hit = setup_phase(T, device)
+    states = moving_obstacle_states(starts.shape[0])
+    x0, p0, state = runner.make_batch(starts, goals, states)
+    st, launches, _ = main_path_phase(
+        runner, consts, starts, goals, x0, p0, state, setup_s,
+        timed_runs=1, config="p2p_holonomic_moving_circle", feas_gate=False)
+    out["moving_circle"] = launches
+    cross_check_phase(T, runner, st, starts, goals, p0,
+                      lanes=CONFIG_CROSS_LANES, obstacle_states=states)
+    t0 = time.time()
+    runner = T.BatchedP2PRunner(
+        build_problem(T, "obstraj"), dtype=torch.float32, device=device,
+        alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
+    x0, p0, state = runner.make_batch(starts, goals)
+    consts = runner.consts()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    print("setup_obstraj " + json.dumps({
+        "setup_s": setup_s, "structure": runner.structure,
+        "structure_reason": runner.structure_reason, "n_x": runner.n_x,
+        "n_p": runner.n_p}), flush=True)
+    st, launches, _ = main_path_phase(
+        runner, consts, starts, goals, x0, p0, state, setup_s,
+        timed_runs=1, config="obstraj", feas_gate=False)
+    out["obstraj"] = launches
+    cross_check_phase(T, runner, st, starts, goals, p0, config="obstraj",
+                      lanes=CONFIG_CROSS_LANES)
+    return out
 
 
 def k3_work(plan, B, n_inner, n_cands, phase=0):
@@ -1595,16 +1887,19 @@ def timed_rollouts(roll, st, p0, state, consts, timed_runs):
 
 def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
                     n_steps=N_STEPS, timed_runs=3, rollout=None,
-                    config="p2p_holonomic"):
-    """The B-lane batched rollout on the fused structure at ``rollout``'s
-    settings (the holonomic bench's by default); the launch counters are
-    zeroed before its first run and read after: K3 must have run, K1 and
-    K2 not.  The holonomic and quadrotor runs are gated on feasibility
-    (feas_p99 < 1e-3, no diverged lane); Dubins' on finite values."""
+                    config="p2p_holonomic", feas_gate=None):
+    """The B-lane batched rollout on the runner's structure at
+    ``rollout``'s settings (the holonomic bench's by default); the launch
+    counters are zeroed before its first run and read after: on the fused
+    structure K3 must have run, K1 and K2 not; on ``compact-arrow`` (phase
+    16's obstraj scene) K1 and K2, not K3.  The holonomic and quadrotor
+    runs are gated on feasibility (feas_p99 < 1e-3, no diverged lane);
+    Dubins' and phase 16's (``feas_gate=False``) on finite values."""
     import torch
     B = x0.shape[0]
     rollout = ROLLOUT if rollout is None else rollout
-    feas_gate = CONFIGS.get(config, {}).get("feas_gate", True)
+    if feas_gate is None:
+        feas_gate = CONFIGS.get(config, {}).get("feas_gate", True)
     roll = runner.rollout_fn(n_steps, **rollout)
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1670,10 +1965,12 @@ def main_path_phase(runner, consts, starts, goals, x0, p0, state, setup_s,
         check(out["diverged_lanes"] == 0,
               f"{out['diverged_lanes']} diverged lanes")
     check(out["mean_progress_frac"] > 0.0, "no progress toward the goals")
-    check(launches["fused_inner"] > 0, "K3 never launched on the main path")
+    fused = runner.structure == "compact-arrow-fused"
+    check((launches["fused_inner"] > 0) == fused,
+          f"{runner.structure}: K3 launched {launches['fused_inner']} times")
     for name in ("psd_solve", "psd_solve_multi"):
-        check(launches[name] == 0,
-              f"{name} launched on the fused path ({launches[name]} times)")
+        check((launches[name] == 0) == fused,
+              f"{runner.structure}: {name} launched {launches[name]} times")
     return st, launches, out
 
 
@@ -1770,7 +2067,8 @@ def profile_phase(runner, st, p0, state, path):
 
 
 def cross_check_phase(T, runner, st, starts, goals, p0,
-                      config="p2p_holonomic", lanes=CROSS_LANES):
+                      config="p2p_holonomic", lanes=CROSS_LANES,
+                      obstacle_states=None):
     """The cold solve of the first CROSS_LANES scenarios by the port on the
     CPU in float64 against (a) the card's float32 fused solve and (b) the
     same float64 runner moved to the card, whose compact-arrow solve runs
@@ -1780,13 +2078,18 @@ def cross_check_phase(T, runner, st, starts, goals, p0,
     perturbed by F64_PERTURB (relative).  The cold solve is not converged
     and its Newton systems are nearly singular, so that sensitivity is
     millimetres, not roundoff: no tighter bound holds for a second
-    implementation that sums in another order."""
+    implementation that sums in another order.  ``obstacle_states``: the
+    scenarios' obstacle states (``make_batch``), cut to the lanes."""
     import torch
     t0 = time.time()
     cpu_runner = T.BatchedP2PRunner(
         build_problem(T, config), dtype=torch.float64, device="cpu",
         alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
-    x0, p0c, _ = cpu_runner.make_batch(starts[:lanes], goals[:lanes])
+    if obstacle_states is not None:
+        obstacle_states = [tuple(a[:lanes] for a in s)
+                           for s in obstacle_states]
+    x0, p0c, _ = cpu_runner.make_batch(starts[:lanes], goals[:lanes],
+                                       obstacle_states)
     st_cpu = cpu_runner.init_solver_state(x0, p0c)
     want = planned_state(cpu_runner, st_cpu.x, p0c).numpy()
 
@@ -1802,7 +2105,8 @@ def cross_check_phase(T, runner, st, starts, goals, p0,
     err_self = err_m(st_self.x, cpu_runner, p0c)
     # the float64 runner on the card shares the CPU runner's host work
     card64 = cpu_runner.to(runner.device)
-    xc, pc, _ = card64.make_batch(starts[:lanes], goals[:lanes])
+    xc, pc, _ = card64.make_batch(starts[:lanes], goals[:lanes],
+                                  obstacle_states)
     zero_launch_counts()
     st64 = card64.init_solver_state(xc, pc)
     torch.cuda.synchronize()
@@ -1813,7 +2117,8 @@ def cross_check_phase(T, runner, st, starts, goals, p0,
         return {"max_err_m": float(e.max()),
                 "p50_err_m": float(np.median(e)),
                 "p90_err_m": float(np.percentile(e, 90))}
-    out = {"config": config, "lanes": lanes, **stats(err),
+    out = {"config": config, "lanes": lanes,
+           "obstacle_states": obstacle_states is not None, **stats(err),
            "cpu_feas_max": float(st_cpu.feas.max()),
            "card_f64": {"structure": card64.structure,
                         "dtype": str(st64.x.dtype), **stats(err64),
@@ -1872,6 +2177,14 @@ def run(cache_root):
         kernel_phase(device)
         return
     kernel_phase(device, timed=False)
+    if "--scenes-only" in sys.argv[1:]:
+        loops = scene_phase(T, device, cache_root)
+        for scene, loop in loops.items():
+            k1_f64_record(device, sum(loop["k1_launches_per_update"]),
+                          loop["k1_launches_per_update"],
+                          name=f"{K1_F64_NAME}, {scene}",
+                          shape=(1, loop["n_x"], 1), tag=scene)
+        return
     runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
         setup_phase(T, device)
     check(not hit, "the first build found its host tensors in the cache")
@@ -1890,8 +2203,11 @@ def run(cache_root):
     # phase 13: the other bench configurations
     done = [config_phases(T, device, c, cache_root) for c in CONFIGS]
     # phase 14: bench.py's formation_holonomic
-    launches["psd_solve_fleet"], k1_per_iteration, _ = formation_phase(
-        T, device)
+    launches["psd_solve_fleet"], k1_per_iteration, _, k1_fleet_f64 = \
+        formation_phase(T, device)
+    # phase 16: the free-time and rotating-obstacle closed loops, the
+    # moving and spline-trajectory obstacles batched
+    loops = scene_phase(T, device, cache_root)
     # phase 15: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
     k3_time_phase(k3_entry[1], k3_timers)
@@ -1901,6 +2217,15 @@ def run(cache_root):
             rec["launches_per_admm_iteration"] = k1_per_iteration
     records.append(("psd_solve", k1_f64_record(device, k1_f64_launches,
                                                k1_f64_per_update)))
+    records.append(("psd_solve", k1_f64_record(
+        device, k1_fleet_f64, None, name=K1_FLEET_NAME + " float64",
+        shape=K1_FLEET_SHAPE, tag="formation")))
+    for scene, loop in loops.items():
+        records.append(("psd_solve", k1_f64_record(
+            device, sum(loop["k1_launches_per_update"]),
+            loop["k1_launches_per_update"],
+            name=f"{K1_F64_NAME}, {scene}", shape=(1, loop["n_x"], 1),
+            tag=scene)))
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]

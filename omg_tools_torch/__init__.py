@@ -8,21 +8,24 @@ thousands of scenarios on one NVIDIA H100.
 The port imports torch and numpy, never JAX nor anything of the JAX
 package.  Its entry points run on CUDA unless the caller passes
 ``device="cpu"`` (a problem: the ``device`` option).  So far it covers
-the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``),
-the distributed formation (``Fleet``, ``FormationPoint2point`` and the
-device loop ``omg_tools_torch.parallel.FleetRunner``),
-the Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins,
-Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the batched
-rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and p2p_dubins
-configurations and the scipy reference solver; ``ROADMAP.md`` lists what
-is still to port.
+the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``)
+with fixed or free motion time (``FreeTPoint2point``) and free end
+points (``FreeEndPoint2point``), moving, rotating and spline-trajectory
+obstacles, the distributed formation (``Fleet``, ``FormationPoint2point``
+and the device loop ``omg_tools_torch.parallel.FleetRunner``), the
+Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins, Bicycle,
+AGV, Trailer, Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the
+batched rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and
+p2p_dubins configurations (with per-scenario obstacle states) and the
+scipy reference solver; ``ROADMAP.md`` lists what is still to port.
 """
 
 __version__ = "0.1.0"
 
 from .ops.basis import Basis, clamped_basis, clamped_knots
-from .ops.spline import (BSpline, evalspline, running_integral,
-                         definite_integral, sample_spline)
+from .ops.spline import (BSpline, Nurbs, TensorBSpline, circle_arc_splines,
+                         evalspline, running_integral, definite_integral,
+                         sample_spline)
 from .environment.shapes import (Circle, Cylinder, Ring, Polyhedron, Beam,
                                  RegularPolyhedron, Rectangle, Square, UFO,
                                  Sphere, Polyhedron3D, RegularPrisma, Cuboid,
@@ -36,11 +39,15 @@ from .models.holonomic1d import Holonomic1D
 from .models.holonomic3d import Holonomic3D
 from .models.holonomicorient import HolonomicOrient
 from .models.dubins import Dubins
+from .models.bicycle import Bicycle
+from .models.agv import AGV
+from .models.trailer import Trailer
 from .models.quadrotor import Quadrotor
 from .models.quadrotor3d import Quadrotor3D, SimpleQuadrotor3D
 from .problems.problem import Problem
 from .problems.point2point import (Point2point, Point2pointProblem,
-                                   FixedTPoint2point)
+                                   FixedTPoint2point, FreeTPoint2point,
+                                   FreeEndPoint2point)
 from .problems.batch import BatchedP2PRunner
 from .problems.admm import ADMMProblem, DistributedProblem
 from .problems.formation import FormationPoint2point

@@ -9,9 +9,10 @@
 - plant simulation (host numpy): closed-form constant-acceleration
   propagation, a user's linear model x' = A x (+ B u), and scripted
   position/velocity/acceleration increments; the bounce predicates and
-  drawing.
-
-Not ported yet: rotating obstacles (NURBS trig arcs).
+  drawing;
+- rotating 2D obstacles: the cosine and sine of the yaw over the horizon
+  as quadratic-NURBS circle arcs, the constraints multiplied through by
+  the arc weight so that they stay polynomial.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..modeling.opti import OptiChild, BIG
 from ..ops.basis import Basis
-from ..ops.spline import BSpline
+from ..ops.spline import BSpline, _const, circle_arc_coeffs
 
 __all__ = ["Obstacle"]
 
@@ -39,10 +40,8 @@ class Obstacle(OptiChild):
         self.set_default_options()
         self.set_options(options or {})
         self.basis = Basis(np.array([0.0, 0, 0, 1, 1, 1]), 2)
+        self.cos, self.sin, self.gon_weight = None, None, 1.0
         self.prepare_simulation(initial, self.simulation)
-        if float(self.signals["angular_velocity"][0, -1]) != 0.0:
-            raise NotImplementedError(
-                "rotating obstacles are not ported to omg_tools_torch yet")
 
     # -- options -----------------------------------------------------------
     def set_default_options(self):
@@ -51,6 +50,8 @@ class Obstacle(OptiChild):
             "spline_traj": False,
             "spline_params": {"knots": [0, 0, 0, 1, 1, 1], "degree": 2,
                               "coeffs": None},
+            # required when the obstacle rotates (the arcs need the
+            # horizon's length)
             "horizon_time": None,
         }
 
@@ -94,18 +95,60 @@ class Obstacle(OptiChild):
         self.checkpoints_par = self.define_parameter(
             "checkpoints", (len(checkpoints), self.n_dim))
         self.rad_par = self.define_parameter("rad", len(checkpoints))
+        self._init_rotation(horizon_times)
+
+    def _init_rotation(self, horizon_times):
+        """Rotating 2D obstacles: cos/sin of the yaw over the horizon as
+        quadratic-NURBS circle arcs (numerators over the weight spline
+        ``gon_weight``), from the parameter theta and the angular
+        velocity."""
+        omega = float(self.signals["angular_velocity"][0, -1])
+        if omega == 0.0 or self.n_dim != 2:
+            self.cos, self.sin, self.gon_weight = None, None, 1.0
+            return
+        T = self.options.get("horizon_time")
+        if T is None:
+            if isinstance(horizon_times, list) and horizon_times and \
+                    isinstance(horizon_times[0], (int, float)):
+                T = float(horizon_times[0])
+            else:
+                raise ValueError("rotating obstacles need a numeric "
+                                 "'horizon_time' option")
+        theta = self.define_parameter("theta", 1)
+        theta0 = theta[0] - self.problem_t * omega
+        # the arcs' coefficients are constants of theta's device and dtype
+        basis, *cfs = circle_arc_coeffs(abs(omega) * T)
+        cos_w, sin_w, weight = (BSpline(basis, _const(c, theta))
+                                for c in cfs)
+        sin_w = sin_w * float(np.sign(omega))
+        self.cos = cos_w * torch.cos(theta0) - sin_w * torch.sin(theta0)
+        self.sin = cos_w * torch.sin(theta0) + sin_w * torch.cos(theta0)
+        self.gon_weight = weight
 
     def define_collision_constraints(self, hyperplanes):
         """Obstacle side of the separating hyperplane: each inflated
-        checkpoint stays on the far side."""
+        checkpoint stays on the far side; a rotating obstacle's checkpoints
+        turn with the arcs, the constraint multiplied through by their
+        weight."""
         n_chck = self.checkpoints_par.shape[0]
         for hyp in hyperplanes:
             a, b = hyp["a"], hyp["b"]
             for l in range(n_chck):
-                pos = [self.pos_spline[k] + self.checkpoints_par[l, k]
-                       for k in range(self.n_dim)]
-                con = -sum(a[k] * pos[k] for k in range(self.n_dim)) \
-                    + b + self.rad_par[l]
+                if self.cos is None:
+                    pos = [self.pos_spline[k] + self.checkpoints_par[l, k]
+                           for k in range(self.n_dim)]
+                    con = -sum(a[k] * pos[k] for k in range(self.n_dim)) \
+                        + b + self.rad_par[l]
+                else:
+                    w = self.gon_weight
+                    cx, cy = self.checkpoints_par[l, 0], \
+                        self.checkpoints_par[l, 1]
+                    xpos = self.pos_spline[0] * w \
+                        + cx * self.cos - cy * self.sin
+                    ypos = self.pos_spline[1] * w \
+                        + cx * self.sin + cy * self.cos
+                    con = -(a[0] * xpos + a[1] * ypos) \
+                        + w * (b + self.rad_par[l])
                 self.define_constraint(con, -BIG, 0.0)
 
     def set_parameters(self, current_time):
@@ -120,6 +163,8 @@ class Obstacle(OptiChild):
         checkpoints, rad = self.shape.get_checkpoints()
         parameters[self]["checkpoints"] = np.asarray(checkpoints)
         parameters[self]["rad"] = np.asarray(rad)
+        if self.cos is not None:
+            parameters[self]["theta"] = self.signals["orientation"][:, -1]
         return parameters
 
     # -- simulation --------------------------------------------------------

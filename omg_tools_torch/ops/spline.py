@@ -5,8 +5,10 @@ coefficient tensor.  All spline algebra (sum, product, derivative, integral,
 evaluation) is a contraction against constant matrices computed once by the
 basis engine, so it composes with ``torch.func.jacfwd``/``grad``/``vmap``.
 
-Counterpart of ``omg_tools_tpu.ops.spline`` (the pytree registration and
-the rational/tensor-product splines are not needed by the ported path).
+Counterpart of ``omg_tools_tpu.ops.spline``: besides ``BSpline``, the
+rational splines (``Nurbs``, from ``spline_div``), the 2-D tensor-product
+spline and the quadratic-NURBS circle arcs of rotating obstacles
+(``circle_arc_splines``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 
 from .basis import Basis
 
-__all__ = ["BSpline", "eval_basis_traced", "evalspline", "running_integral",
-           "definite_integral", "sample_spline"]
+__all__ = ["BSpline", "Nurbs", "TensorBSpline", "spline_div",
+           "circle_arc_splines", "circle_arc_coeffs", "eval_basis_traced",
+           "evalspline", "running_integral", "definite_integral",
+           "sample_spline"]
 
 
 # While a CUDA graph is made (its warm-up run and its capture), the device
@@ -231,8 +235,164 @@ class BSpline:
         w = _const(self.basis.integral_weights(), self.coeffs)
         return torch.einsum("...i,i->...", self.coeffs, w)
 
+    def insert_knots(self, knots) -> "BSpline":
+        T, basis = self.basis.knot_insertion_T(knots)
+        return BSpline(basis, torch.einsum("qi,...i->...q",
+                                           _const(T, self.coeffs),
+                                           self.coeffs))
+
     def scale(self, factor, shift=0.0) -> "BSpline":
         return BSpline(self.basis.scale(factor, shift), self.coeffs)
+
+    def crop(self, a: float, b: float) -> "BSpline":
+        T, sub = self.basis.interval_T(a, b)
+        return BSpline(sub, torch.einsum("qi,...i->...q",
+                                         _const(T, self.coeffs), self.coeffs))
+
+    def __truediv__(self, other):
+        if isinstance(other, BSpline):
+            return spline_div(self, other)
+        return BSpline(self.basis, self.coeffs / other)
+
+
+class Nurbs:
+    """Rational spline: numerator/denominator coefficient pairs on one
+    basis, produced by BSpline division; evaluation divides pointwise and
+    products keep the rational form."""
+
+    def __init__(self, basis, coeffs, weights):
+        self.basis = basis
+        self.coeffs = _as_tensor(coeffs)
+        self.weights = _as_tensor(weights)
+
+    def numerator(self) -> BSpline:
+        return BSpline(self.basis, self.coeffs * self.weights)
+
+    def denominator(self) -> BSpline:
+        return BSpline(self.basis, self.weights)
+
+    def __call__(self, x):
+        return self.numerator()(x) / self.denominator()(x)
+
+    def __mul__(self, other):
+        if isinstance(other, Nurbs):
+            num = self.numerator() * other.numerator()
+            den = self.denominator() * other.denominator()
+            return Nurbs(num.basis, num.coeffs / den.coeffs, den.coeffs)
+        if isinstance(other, BSpline):
+            num = self.numerator() * other
+            den = self.denominator() * BSpline(
+                other.basis, torch.ones(len(other.basis),
+                                        dtype=self.coeffs.dtype,
+                                        device=self.coeffs.device))
+            return Nurbs(num.basis, num.coeffs / den.coeffs, den.coeffs)
+        return Nurbs(self.basis, self.coeffs * other, self.weights)
+
+    __rmul__ = __mul__
+
+
+def spline_div(num: BSpline, den: BSpline) -> Nurbs:
+    """BSpline division: a NURBS on the union basis."""
+    basis = num.basis + den.basis
+    n = torch.einsum("qi,...i->...q", _const(basis.transform(num.basis),
+                                              num.coeffs), num.coeffs)
+    w = torch.einsum("qi,...i->...q", _const(basis.transform(den.basis),
+                                              den.coeffs), den.coeffs)
+    return Nurbs(basis, n / w, w)
+
+
+class TensorBSpline:
+    """2-D tensor-product spline: a coefficient grid
+    ``(len(basis_u), len(basis_v))``, evaluated as two small matmuls."""
+
+    def __init__(self, bases, coeffs):
+        self.basis = list(bases)
+        if len(self.basis) != 2:
+            raise ValueError("TensorBSpline supports 2 dimensions")
+        self.coeffs = _as_tensor(coeffs)
+
+    def __call__(self, u, v):
+        Eu = _const(self.basis[0].eval(np.atleast_1d(u)), self.coeffs)
+        Ev = _const(self.basis[1].eval(np.atleast_1d(v)), self.coeffs)
+        out = torch.einsum("ui,vj,...ij->...uv", Eu, Ev, self.coeffs)
+        if np.ndim(u) == 0 and np.ndim(v) == 0:
+            return out[..., 0, 0]
+        return out
+
+    def __add__(self, other):
+        if isinstance(other, TensorBSpline):
+            if other.basis[0] is self.basis[0] \
+                    and other.basis[1] is self.basis[1]:
+                return TensorBSpline(self.basis, self.coeffs + other.coeffs)
+            bu = self.basis[0] + other.basis[0]
+            bv = self.basis[1] + other.basis[1]
+            out = torch.zeros((len(bu), len(bv)), dtype=self.coeffs.dtype,
+                              device=self.coeffs.device)
+            for s in (self, other):
+                Tu = _const(bu.transform(s.basis[0]), s.coeffs)
+                Tv = _const(bv.transform(s.basis[1]), s.coeffs)
+                out = out + torch.einsum("ui,vj,ij->uv", Tu, Tv, s.coeffs)
+            return TensorBSpline([bu, bv], out)
+        return TensorBSpline(self.basis, self.coeffs + other)
+
+    __radd__ = __add__
+
+    def __mul__(self, other):
+        if isinstance(other, TensorBSpline):
+            pu, Wu = self.basis[0].product_tensor(other.basis[0])
+            pv, Wv = self.basis[1].product_tensor(other.basis[1])
+            coeffs = torch.einsum(
+                "qik,rjl,ij,kl->qr", _const(Wu, self.coeffs),
+                _const(Wv, self.coeffs), self.coeffs, other.coeffs)
+            return TensorBSpline([pu, pv], coeffs)
+        return TensorBSpline(self.basis, self.coeffs * other)
+
+    __rmul__ = __mul__
+
+    def derivative(self, o, axis):
+        Bd, P = self.basis[axis].derivative(o)
+        P = _const(P, self.coeffs)
+        if axis == 0:
+            return TensorBSpline([Bd, self.basis[1]],
+                                 torch.einsum("qi,ij->qj", P, self.coeffs))
+        return TensorBSpline([self.basis[0], Bd],
+                             torch.einsum("qj,ij->iq", P, self.coeffs))
+
+
+def circle_arc_splines(sweep: float):
+    """Quadratic-NURBS arc: (cos_num, sin_num, w) BSplines on [0, 1]
+    covering a rotation of ``sweep`` radians from angle 0, such that
+    cos(sweep u) = cos_num(u) / w(u) and sin likewise."""
+    basis, *cfs = circle_arc_coeffs(sweep)
+    return tuple(BSpline(basis, c) for c in cfs)
+
+
+def circle_arc_coeffs(sweep: float):
+    """The basis and the numpy coefficients (cos_num, sin_num, w) of
+    :func:`circle_arc_splines`.  The arc is built from quarter-circle
+    segments, as many as cover the sweep, and cropped to [0, 1]."""
+    if sweep <= 0:
+        raise ValueError("sweep must be positive")
+    quarter = 0.5 * np.pi
+    n_q = int(np.ceil(sweep / quarter))
+    # a basis over n_q quarters in u' in [0, n_q * quarter / sweep]
+    u_ends = np.array([(k + 1) * quarter / sweep for k in range(n_q)])
+    knots = np.r_[np.zeros(3),
+                  np.repeat(u_ends[:-1], 2) if n_q > 1 else np.array([]),
+                  np.full(3, u_ends[-1])]
+    basis = Basis(knots, 2)
+    c = np.sqrt(2.0) / 2.0
+    cos_pat = np.array([1, c, 0, -c, -1, -c, 0, c])
+    sin_pat = np.array([0, c, 1, c, 0, -c, -1, -c])
+    w_pat = np.array([1, c, 1, c, 1, c, 1, c])
+    n = len(basis)
+    cos_cfs = np.array([cos_pat[k % 8] for k in range(n)])
+    sin_cfs = np.array([sin_pat[k % 8] for k in range(n)])
+    w_cfs = np.array([w_pat[k % 8] for k in range(n)])
+    if u_ends[-1] > 1.0 + 1e-12:
+        T, basis = basis.interval_T(0.0, 1.0)
+        cos_cfs, sin_cfs, w_cfs = T @ cos_cfs, T @ sin_cfs, T @ w_cfs
+    return basis, cos_cfs, sin_cfs, w_cfs
 
 
 def evalspline(s: BSpline, t):

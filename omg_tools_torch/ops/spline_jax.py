@@ -1,6 +1,5 @@
 """Spline-coefficient transforms whose shift is a run-time value
-(counterpart of ``omg_tools_tpu.ops.spline_jax``; the future-piece
-transforms only).
+(counterpart of ``omg_tools_tpu.ops.spline_jax``).
 
 ``shiftfirstknot_T(basis, t)`` re-expresses a spline on knots whose first
 degree+1 entries move to ``t``: the ADMM x-update penalizes only the
@@ -16,8 +15,12 @@ steps whose weights are affine in t, so its entries are polynomials of
 degree <= degree+1, reproduced to machine precision by a fit through
 degree+2 Chebyshev samples.
 
-Not ported yet: the traced Cox-de Boor helpers and ``shift_spline_T``
-(free-time problems, ROADMAP.md Queue 1 item 2).
+The Cox-de Boor helpers at the end take the knots themselves as a
+tensor (``eval_basis_traced``, ``greville_traced``), and
+``shift_spline_T_traced`` builds the free-time re-basing transform of
+``Basis.shift_spline_T`` from a tensor shift with one (n, n) solve.
+The free-time problem itself re-bases on the host
+(``problems.point2point.FreeTPoint2point.init_step``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from .spline import _const
 
 __all__ = ["TransformPoly", "fit_transform_poly", "eval_transform",
            "shiftfirstknot_poly", "shiftfirstknot_T", "shift_knot1_fwd",
-           "shift_knot1_bwd"]
+           "shift_knot1_bwd", "eval_basis_traced", "greville_traced",
+           "shift_spline_T_traced"]
 
 
 class TransformPoly(NamedTuple):
@@ -124,3 +128,78 @@ def shift_knot1_bwd(coeffs, basis: Basis, t):
     c_head = c[:d + 1].reshape(d + 1, -1)
     y = torch.linalg.solve_triangular(head, c_head, upper=True)
     return torch.cat([y.reshape(c[:d + 1].shape), c[d + 1:]])
+
+
+# -- Cox-de Boor with tensor knots AND points ---------------------------------
+
+def eval_basis_traced(knots, degree: int, x):
+    """Branch-free Cox-de Boor: the (len(x), n_basis) collocation matrix
+    with both ``knots`` and ``x`` tensors.  Matches
+    ``ops.basis.eval_basis_matrix`` for clamped bases (the first degree+1
+    indicator functions closed on the left); empty spans contribute
+    zero."""
+    knots = torch.as_tensor(knots)
+    x = torch.atleast_1d(torch.as_tensor(x, dtype=knots.dtype,
+                                         device=knots.device))
+    nk = knots.shape[0]
+    d = int(degree)
+    lo, hi = knots[:-1], knots[1:]
+    xe = x[:, None]
+    closed_left = torch.arange(nk - 1, device=knots.device) < d + 1
+    left_ok = torch.where(closed_left[None, :], xe >= lo[None, :],
+                          xe > lo[None, :])
+    b = (left_ok & (xe <= hi[None, :])).to(x.dtype)     # (npts, nk-1)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    for r in range(1, d + 1):
+        den1 = knots[r:nk - 1] - knots[:nk - 1 - r]     # (nk-1-r,)
+        den2 = knots[r + 1:nk] - knots[1:nk - r]
+        w1 = torch.where(den1 > 1e-14,
+                         (xe - knots[None, :nk - 1 - r])
+                         / torch.where(den1 > 1e-14, den1, 1.0)[None, :],
+                         zero)
+        w2 = torch.where(den2 > 1e-14,
+                         (knots[None, r + 1:nk] - xe)
+                         / torch.where(den2 > 1e-14, den2, 1.0)[None, :],
+                         zero)
+        b = w1 * b[:, :nk - 1 - r] + w2 * b[:, 1:nk - r]
+    return b
+
+
+def greville_traced(knots, degree: int):
+    """Greville abscissae of a tensor knot vector."""
+    knots = torch.as_tensor(knots)
+    n = knots.shape[0] - degree - 1
+    if degree == 0:
+        return 0.5 * (knots[:-1] + knots[1:])
+    idx = (torch.arange(n, device=knots.device)[:, None] + 1
+           + torch.arange(degree, device=knots.device)[None, :])
+    return torch.mean(knots[idx], dim=1)
+
+
+def shift_spline_T_traced(basis: Basis, t):
+    """The transform of ``basis.shift_spline_T(t)`` at a tensor ``t``
+    (basis-domain units): the spline piece on [t, end] re-expressed in a
+    fresh equidistant clamped basis over [t, end].  Its entries are only
+    piecewise smooth in t, so the target knots and Greville points (affine
+    in t) and both collocation matrices are built from ``t`` and one
+    (n, n) solve gives T."""
+    d, n = basis.degree, len(basis)
+    n_knots = n - d + 1
+    k_end = float(basis.knots[-1])
+    t = torch.as_tensor(t)
+    interior = t + (k_end - t) * torch.linspace(0.0, 1.0, n_knots,
+                                                dtype=t.dtype,
+                                                device=t.device)
+    knots2 = torch.cat([t.expand(d), interior,
+                        torch.full((d,), k_end, dtype=t.dtype,
+                                   device=t.device)])
+    g = greville_traced(knots2, d)
+    # nudge coincident Greville points apart (degenerate only at
+    # t == k_end), then clip back into the basis domain (a point past k_end
+    # would zero its collocation row)
+    g = torch.cummax(g + torch.arange(n, dtype=t.dtype, device=t.device)
+                     * 1e-12, dim=0).values
+    g = torch.minimum(torch.maximum(g, knots2[0]), knots2[-1])
+    B_t = eval_basis_traced(knots2, d, g)                    # (n, n) target
+    E_s = eval_basis_traced(_const(np.array(basis.knots), t), d, g)  # source
+    return torch.linalg.solve(B_t, E_s)

@@ -12,9 +12,12 @@ fingerprint, ``runner._cache_key``); its tensors then move to the device.
 
 Scope: FixedT Point2point problems with a vehicle that has a rollout
 recipe (``problems/rollout_models.py``: Holonomic, the quadrotors,
-HolonomicOrient, Dubins), obstacles with constant-acceleration motion,
-ideal plant update, the ``compact-arrow`` solver structure and, in
-float32, ``compact-arrow-fused`` (every inner iteration of an outer round
+HolonomicOrient, Dubins), obstacles with constant-acceleration motion
+(their states per scenario, ``make_batch(obstacle_states=)``) or on a
+caller-given spline trajectory (re-based one period on by a constant
+shift matrix every plant step), ideal plant update, the
+``compact-arrow`` solver structure and, in float32,
+``compact-arrow-fused`` (every inner iteration of an outer round
 in one launch of the fused kernel K3, ``ops/fused_alm.py``) wherever K3
 takes the plan.  The dense, generic and compact (no arrow) batched
 structures are not ported yet.
@@ -31,6 +34,7 @@ import torch
 from torch.func import grad, jacfwd
 from torch.profiler import record_function
 
+from ..ops.basis import Basis
 from ..ops.alm import ALMState, ALMOptions, make_alm_solver, \
     detect_quadratic_structure
 from ..ops.compact import build_compact, detect_arrow, resolve_phase
@@ -135,11 +139,20 @@ class BatchedP2PRunner:
 
         self.i_t, _ = idx(problem, "t")
         self.obstacle_idx = []
+        # spline-trajectory obstacles: a period's propagation re-expresses
+        # the trajectory spline one period later, a constant shift matrix
+        # on the coefficient parameters
+        self.traj_obstacle_idx = []
         for obstacle in problem.environment.obstacles:
             if obstacle.options.get("spline_traj", False):
-                raise NotImplementedError(
-                    "spline-trajectory obstacles are not ported to the "
-                    "batched runner yet")
+                ic, cshape = idx(obstacle, "traj_coeffs")
+                sp = obstacle.options["spline_params"]
+                traj_basis = Basis(np.asarray(sp["knots"], dtype=np.float64),
+                                   sp["degree"])
+                M_obs = torch.as_tensor(traj_basis.shift_spline_T(
+                    self.update_time / self.horizon), **dev)
+                self.traj_obstacle_idx.append((ic, cshape, M_obs))
+                continue
             try:
                 ix, _ = idx(obstacle, "x")
                 iv, _ = idx(obstacle, "v")
@@ -241,6 +254,8 @@ class BatchedP2PRunner:
         other.shift_M = self.shift_M.to(**dev)
         other.lb = self.lb.to(**dev)
         other.ub = self.ub.to(**dev)
+        other.traj_obstacle_idx = [(ic, cshape, M.to(**dev)) for
+                                   (ic, cshape, M) in self.traj_obstacle_idx]
         other.model = make_rollout_model(other)
         other._consts = None
         return other
@@ -283,6 +298,8 @@ class BatchedP2PRunner:
         varying = list(self.model.varying_params())
         for (ix, iv, ia) in self.obstacle_idx:
             varying.extend([ix, iv, ia])
+        for (ic, _, _) in self.traj_obstacle_idx:
+            varying.append(ic)
         return np.unique(np.concatenate(varying))
 
     def _build_affine_cA(self):
@@ -371,11 +388,20 @@ class BatchedP2PRunner:
                                "vsel": varying}
 
     # -- scenario construction (host) -------------------------------------
-    def make_batch(self, starts, goals):
+    def make_batch(self, starts, goals, obstacle_states=None):
         """Build (x0, p0, state0) device batches from per-scenario
-        starts/goals (B, n_dim), the obstacles at their initial states.
-        Init guesses: straight-line splines + geometric hyperplane warm
-        starts."""
+        starts/goals (B, n_dim) and, optionally, obstacle states: a list
+        of (pos, vel, acc), each (B, n_dim).  Without them the obstacles
+        are at their initial states.  Init guesses: straight-line splines +
+        geometric hyperplane warm starts.
+
+        As in the JAX package, ``obstacle_states`` is read two ways: its
+        first entries, in order, are the states of the moving obstacles
+        (those with x, v, a parameters; spline-trajectory obstacles are
+        skipped), while the hyperplane warm start of the obstacle at
+        position l of the environment's list reads the position of entry
+        l.  With the spline-trajectory obstacles last, one entry per
+        obstacle in the environment's order satisfies both."""
         tr = self.tr
         problem = self.problem
         vehicle = self.vehicle
@@ -401,6 +427,12 @@ class BatchedP2PRunner:
 
         p0 = np.tile(problem.pack_parameters(0.0)[None, :], (B, 1))
         p0 = self.model.batch_params(p0, starts, goals)
+        if obstacle_states is not None:
+            for (ix, iv, ia), (pos, vel, acc) in zip(self.obstacle_idx,
+                                                     obstacle_states):
+                p0[:, ix] = pos
+                p0[:, iv] = vel
+                p0[:, ia] = acc
 
         # vectorized geometric hyperplane warm start per (obstacle, scenario)
         for l, obstacle in enumerate(problem.environment.obstacles):
@@ -410,8 +442,11 @@ class BatchedP2PRunner:
                     sl, shape = tr.var_slice(problem.environment, name)
                 except KeyError:
                     continue
-                obs_pos = np.tile(
-                    obstacle.signals["position"][:, -1][None, :], (B, 1))
+                if obstacle_states is not None:
+                    obs_pos = np.asarray(obstacle_states[l][0])
+                else:
+                    obs_pos = np.tile(
+                        obstacle.signals["position"][:, -1][None, :], (B, 1))
                 chck, rad = obstacle.shape.get_checkpoints()
                 bbox_lo = chck.min(axis=0)[None, :] + obs_pos
                 bbox_hi = chck.max(axis=0)[None, :] + obs_pos
@@ -505,6 +540,8 @@ class BatchedP2PRunner:
         model = self.model
         obstacle_idx = [tuple(torch.as_tensor(i, device=dev) for i in ids)
                         for ids in self.obstacle_idx]
+        traj_obstacle_idx = [(torch.as_tensor(ic, device=dev), cshape, M)
+                             for (ic, cshape, M) in self.traj_obstacle_idx]
         n_coef, n_spl = self.spline_shape
         horizon = self.horizon
         if recover_metric not in ("raw", "scaled"):
@@ -589,7 +626,8 @@ class BatchedP2PRunner:
         def plant_step(st, p, k):
             """Ideal plant update: the solved splines at the next sample
             instant become the new vehicle state; obstacles advance with
-            constant acceleration."""
+            constant acceleration, or one period along their spline
+            trajectory."""
             phase = k % spk
             cfs = st.x[:, s0:s1].reshape(-1, n_coef, n_spl)
             p, state_n = model.update(p, cfs, phase + 1, horizon)
@@ -597,6 +635,9 @@ class BatchedP2PRunner:
                 pos, vel, acc = p[:, ix], p[:, iv], p[:, ia]
                 p[:, ix] = pos + vel * dt + 0.5 * acc * dt * dt
                 p[:, iv] = vel + acc * dt
+            for (ic, cshape, M_obs) in traj_obstacle_idx:
+                cfs_o = p[:, ic].reshape(-1, *cshape)
+                p[:, ic] = (M_obs @ cfs_o).reshape(p.shape[0], -1)
             return p, state_n
 
         if budgets is not None:

@@ -1,11 +1,15 @@
-"""Fixed-horizon point-to-point motion problem (counterpart of
-``omg_tools_tpu.problems.point2point``): horizon_time parameter, soft-L1
-terminal constraint via slack splines g_k with objective
-integral(g, t0, 1), hard terminal derivative constraints at tau = 1, and
-the warm-start shift over knot passage, and the closed loop's host
-methods (trajectory storage, plant simulation, objective bookkeeping).
+"""Point-to-point motion problems (counterpart of
+``omg_tools_tpu.problems.point2point``), with the closed loop's host
+methods (trajectory storage, plant simulation, objective bookkeeping):
 
-Not ported yet: the free-time and free-end-point problems.
+- FixedTPoint2point: horizon_time parameter, soft-L1 terminal constraint
+  via slack splines g_k with objective integral(g, t0, 1), hard terminal
+  derivative constraints at tau = 1, warm-start shift over knot passage;
+- FreeTPoint2point: the motion time T is a decision variable with
+  objective T, hard terminal constraints, and every update re-bases the
+  splines on the remaining piece of the motion (``Basis.shift_spline_T``);
+- FreeEndPoint2point: a subset of the terminal conditions become
+  variables conT (the base of rendezvous problems).
 """
 
 from __future__ import annotations
@@ -16,17 +20,16 @@ from .problem import Problem
 from ..modeling.opti import BIG
 from ..ops.spline import BSpline, evalspline, definite_integral
 
-__all__ = ["Point2point", "Point2pointProblem", "FixedTPoint2point"]
+__all__ = ["Point2point", "Point2pointProblem", "FixedTPoint2point",
+           "FreeTPoint2point", "FreeEndPoint2point"]
 
 
 class Point2point:
-    """Factory selecting the fixed-T problem (free-T is not ported yet)."""
+    """Factory selecting the fixed-T or the free-T problem."""
 
     def __new__(cls, fleet, environment, options=None, freeT=False):
         if freeT:
-            raise NotImplementedError(
-                "FreeTPoint2point is not ported to omg_tools_torch yet "
-                "(ROADMAP.md Queue 1 item 2)")
+            return FreeTPoint2point(fleet, environment, options)
         return FixedTPoint2point(fleet, environment, options)
 
 
@@ -237,3 +240,149 @@ class FixedTPoint2point(Point2pointProblem):
                     obj += self.options["horizon_time"] * float(g.integral())
             return obj
         return self.objective
+
+
+class FreeTPoint2point(Point2pointProblem):
+
+    def __init__(self, fleet, environment, options):
+        Point2pointProblem.__init__(self, fleet, environment, options)
+        self.objective = 0.0
+
+    def construct(self):
+        # T is a variable; the other children still see it as problem_T
+        self.T = self.define_variable("T", value=self.horizon_value())[0]
+        self.t = self.define_parameter("t")[0]
+        self.t0 = self.t / self.T
+        for child in self.children:
+            child.problem_t = self.t
+            child.problem_T = self.T
+        Problem.construct(self)
+        for vehicle in self.vehicles:
+            vehicle.init()
+            splines = vehicle.define_splines(n_seg=1)
+            vehicle.define_trajectory_constraints(splines[0], self.T)
+            self.environment.define_collision_constraints(vehicle, splines,
+                                                          self.T)
+        self.define_objective(self.T)
+        self.define_constraint(-self.T, -BIG, 0.0)
+        self.define_init_constraints()
+        self.define_terminal_constraints()
+
+    def define_terminal_constraints(self):
+        for vehicle in self.vehicles:
+            term_con, term_con_der = vehicle.get_terminal_constraints(
+                vehicle.splines[0])
+            if self.options.get("no_term_con_der", False):
+                term_con_der = []
+            for spline, condition in term_con + term_con_der:
+                self.define_constraint(
+                    evalspline(spline, np.asarray(1.0)) - condition,
+                    0.0, 0.0)
+
+    def set_parameters(self, current_time):
+        parameters = {self: {}}
+        parameters[self]["t"] = 0.0 if self.init_time is None \
+            else self.init_time
+        return parameters
+
+    def time_parameter(self, current_time):
+        return 0.0 if self.init_time is None else float(self.init_time)
+
+    def init_step(self, current_time, update_time):
+        if (current_time - self.start_time) > 0:
+            T = float(self.get_variables(self, "T")[0])
+            if T < 2 * update_time:
+                update_time = T - update_time
+                target_time = T
+            else:
+                target_time = T - update_time
+            # re-express the remaining spline piece in a fresh equidistant
+            # basis, and the motion time as what is left of it
+            M = self.transcription.spline_shift_matrix(
+                lambda basis: basis.shift_spline_T(update_time / target_time))
+            self.transform_primal_splines(M)
+            self.set_variables(np.array([target_time]), self, "T")
+
+    def store(self, current_time, update_time, sample_time):
+        horizon_time = float(self.get_variables(self, "T")[0])
+        rel_current_time = 0.0 if self.init_time is None else self.init_time
+        if horizon_time < sample_time:
+            return
+        for vehicle in self.vehicles:
+            n_samp = int(round(
+                (horizon_time - rel_current_time) / sample_time, 6)) + 1
+            time_axis = np.linspace(
+                rel_current_time,
+                rel_current_time + (n_samp - 1) * sample_time, n_samp)
+            segments = [self.get_variables(vehicle, f"splines_seg{k}")
+                        for k in range(vehicle.n_seg)]
+            vehicle.store(current_time, sample_time, segments, horizon_time,
+                          time_axis)
+
+    def simulate(self, current_time, simulation_time, sample_time):
+        horizon_time = float(self.get_variables(self, "T")[0])
+        rel_current_time = 0.0 if self.init_time is None else self.init_time
+        if horizon_time < sample_time:
+            return
+        simulation_time = min(simulation_time, horizon_time,
+                              horizon_time - rel_current_time)
+        self.compute_partial_objective(
+            current_time + simulation_time - self.start_time)
+        Problem.simulate(self, current_time, simulation_time, sample_time)
+
+    def stop_criterium(self, current_time, update_time):
+        if float(self.get_variables(self, "T")[0]) < update_time:
+            return True
+        return Point2pointProblem.stop_criterium(self, current_time,
+                                                 update_time)
+
+    def compute_partial_objective(self, current_time):
+        self.objective = current_time
+
+    def compute_objective(self):
+        return self.objective
+
+
+class FreeEndPoint2point(FixedTPoint2point):
+    """A fixed-T problem whose terminal conditions ``free_ind`` (per
+    vehicle; all of them by default) are variables conT{l}, reached in the
+    soft-L1 sense."""
+
+    def __init__(self, fleet, environment, options, free_ind=None):
+        FixedTPoint2point.__init__(self, fleet, environment, options)
+        self.free_ind = free_ind
+
+    def construct(self):
+        if self.free_ind is None:
+            # every terminal condition free, counted when they are made
+            self.free_ind = {vehicle: None for vehicle in self.vehicles}
+        FixedTPoint2point.construct(self)
+
+    def define_terminal_constraints(self):
+        objective = 0.0
+        self.term_con_len = []
+        self._term_g_bases = []
+        for l, vehicle in enumerate(self.vehicles):
+            term_con, term_con_der = vehicle.get_terminal_constraints(
+                vehicle.splines[0])
+            if self.free_ind.get(vehicle) is None:
+                self.free_ind[vehicle] = list(range(len(term_con)))
+            free = self.free_ind[vehicle]
+            conditions = self.define_variable(f"conT{l}", len(free))
+            cnt = 0
+            self.term_con_len.append(len(term_con))
+            self._term_g_bases.append([c[0].basis for c in term_con])
+            for k, (spline, condition) in enumerate(term_con):
+                if k in free:
+                    condition = conditions[cnt]
+                    cnt += 1
+                g = self.define_spline_variable(
+                    f"g{k}", 1, basis=spline.basis)[0]
+                objective = objective + definite_integral(g, self.t0, 1.0)
+                self.define_constraint(spline - condition - g, -BIG, 0.0)
+                self.define_constraint(-spline + condition - g, -BIG, 0.0)
+            for spline, condition in term_con_der:
+                self.define_constraint(
+                    evalspline(spline, np.asarray(1.0)) - condition,
+                    0.0, 0.0)
+        self.define_objective(objective)

@@ -18,6 +18,15 @@ implementation can agree to 1e-8: the JAX package's own solution moves
 (relative).  So the full-budget solve and the closed loop are held to
 1e-8 or, where rounding was amplified, to that sensitivity, measured here;
 the solve is held to 1e-8 over its first 11 iterations.
+
+The sensitivity is heavy-tailed: over 8 draws of the 1e-15 perturbation
+the JAX solution moved 2.6e-7 to 2.1e-4 with the default threads and
+1.3e-9 to 2.1e-4 with OMP_NUM_THREADS=1, and its unperturbed solution
+itself moves by ~1e-6 between those two settings, while the port's does
+not (its own moves, 8e-8 to 2.1e-6, are the same under both).  The port
+landed 5.5e-7 (default) and 1.24e-6 (OMP_NUM_THREADS=1) from the JAX
+solution: inside that spread.  One draw is no stable measure of it, so
+the bound is 4x the median move over SENS_DRAWS draws.
 """
 
 import jax
@@ -35,6 +44,8 @@ from omg_tools_torch.ops.alm import make_alm_solver
 
 N_UPDATES = 3
 TOL = 1e-8
+SENS_DRAWS = 5
+SENS_FACTOR = 4.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,7 +98,7 @@ def quadratic():
     """Both packages' closed loops (exploit_structure, default budgets):
     x and solver stats after each of N_UPDATES Simulator updates, the
     signals after the last, and the JAX cold solve's splines from a start
-    perturbed by 1e-15 (relative)."""
+    perturbed by 1e-15 (relative), SENS_DRAWS draws."""
     tp = _scene(T, {"exploit_structure": True, "device": "cpu"})
     assert tp._structure == "quadratic"
     jp = _scene(J, {})
@@ -99,10 +110,12 @@ def quadratic():
     x0, P = jp._x_result.copy(), jp.pack_parameters(0.0)
     lb, ub = jp.transcription.bounds(0.0)
     out["inputs"] = (x0, P, np.asarray(lb), np.asarray(ub))
-    rng = np.random.default_rng(0)
-    st = jp._jit_solve(jnp.asarray(x0 * (1 + 1e-15 * rng.standard_normal(
-        x0.shape))), jnp.asarray(P), lb, ub)
-    out["perturbed"] = _splines(jp, np.asarray(st.x))
+    out["perturbed"] = []
+    for seed in range(SENS_DRAWS):
+        rng = np.random.default_rng(seed)
+        st = jp._jit_solve(jnp.asarray(x0 * (1 + 1e-15 * rng.standard_normal(
+            x0.shape))), jnp.asarray(P), lb, ub)
+        out["perturbed"].append(_splines(jp, np.asarray(st.x)))
     for name, m, problem in (("jax", J, jp), ("torch", T, tp)):
         sim = m.Simulator(problem)
         xs, stats = [], []
@@ -113,8 +126,9 @@ def quadratic():
         out[name] = {"x": xs, "stats": stats, "signals": {
             k: np.asarray(v, np.float64)
             for k, v in problem.vehicles[0].signals.items()}}
-    out["own"] = float(np.abs(out["perturbed"]
-                              - _splines(jp, out["jax"]["x"][0])).max())
+    moves = [float(np.abs(s - _splines(jp, out["jax"]["x"][0])).max())
+             for s in out["perturbed"]]
+    out["own"] = SENS_FACTOR * float(np.median(moves))
     return out
 
 

@@ -137,6 +137,61 @@ def test_subprocess_builds_other_bench_problems_without_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+# phase 16's scenes (free time, a rotating obstacle, a spline trajectory),
+# the AGV, the Trailer and a free end point, built as on the card's machine
+_CHILD_SCENES = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+import omg_tools_torch as T
+import chip_smoke
+problems = [chip_smoke.build_scene(T, s, {"device": "cpu"}) for s in
+            ("p2p_dubins", "p2p_bicycle", "revolving_door", "obstraj")]
+agv = T.AGV()
+agv.set_initial_conditions([0.0, 0.0, 0.0, 0.0])
+agv.set_terminal_conditions([3.0, 3.0, 0.0])
+lead = T.Dubins(T.Circle(0.2))
+lead.set_initial_conditions([0.0, 0.0, 0.0])
+lead.set_terminal_conditions([2.5, 2.5, 0.0])
+trailer = T.Trailer(lead_veh=lead, l_hitch=0.4)
+trailer.set_initial_conditions([0.0])
+trailer.set_terminal_conditions([0.0])
+for veh in (agv, trailer):
+    veh.define_knots(knot_intervals=5)
+    env = T.Environment(room={"shape": T.Square(5.0)})
+    problems.append(T.Point2point(veh, env, {"device": "cpu"}, freeT=True))
+veh = T.Holonomic()
+veh.set_initial_conditions([-1.5, -1.5])
+veh.set_terminal_conditions([2.0, 2.0])
+problems.append(T.FreeEndPoint2point(
+    veh, T.Environment(room={"shape": T.Square(5.0)}), {"device": "cpu"}))
+for problem in problems:
+    problem.set_options({"verbose": 0})
+    problem.init()
+    assert problem.transcription.n_x > 0
+assert [type(p).__name__ for p in problems] == (
+    ["FreeTPoint2point"] * 2 + ["FixedTPoint2point"] * 2
+    + ["FreeTPoint2point"] * 2 + ["FreeEndPoint2point"])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_builds_the_new_scenes_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD_SCENES % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

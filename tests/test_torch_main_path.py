@@ -18,6 +18,7 @@ feasibility 1e-9) and to 1e-8 m per rollout state.
 import copy
 import os
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,10 @@ from omg_tools_torch.interop import (batch_from_numpy, compact_from_numpy,
                                      state_from_numpy)
 from omg_tools_torch.ops.alm import make_alm_solver
 from omg_tools_torch.ops.compact import resolve_phase
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+import chip_smoke  # noqa: E402  phase 16's moving circle
 
 B = 4
 N_STEPS = 11        # covers the knot-passage (hard budget) step at k = 10
@@ -103,18 +108,31 @@ def scenarios():
 
 
 @pytest.fixture(scope="module")
-def jax_run(pair, scenarios):
+def jax_fns(pair):
+    """The JAX runner's cold solve and rollout, compiled once for B
+    scenarios."""
+    _, jr, _, _ = pair
+    return (jax.jit(jr.init_solver_state),
+            jax.jit(jr.rollout_fn(N_STEPS, **ROLLOUT)))
+
+
+def _jax_run(pair, jax_fns, scenarios, obstacle_states=None):
     """The JAX package's cold solve and rollout of the B scenarios."""
     _, jr, _, _ = pair
-    x0, p0, state = jr.make_batch(*scenarios)
+    x0, p0, state = jr.make_batch(*scenarios, obstacle_states)
     consts = jr.consts()
-    st0 = jax.jit(jr.init_solver_state)(x0, p0, consts)
-    carry, states = jax.jit(jr.rollout_fn(N_STEPS, **ROLLOUT))(
-        st0, p0, state, consts)
+    st0 = jax_fns[0](x0, p0, consts)
+    carry, states = jax_fns[1](st0, p0, state, consts)
     as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa
     return dict(x0=np.asarray(x0), p0=np.asarray(p0),
                 state=np.asarray(state), st0=as_np(st0._asdict()),
-                final=as_np(carry[0]._asdict()), states=np.asarray(states))
+                final=as_np(carry[0]._asdict()), states=np.asarray(states),
+                p_end=np.asarray(carry[1]))
+
+
+@pytest.fixture(scope="module")
+def jax_run(pair, jax_fns, scenarios):
+    return _jax_run(pair, jax_fns, scenarios)
 
 
 def _close(got, want, rtol=HOST_RTOL):
@@ -242,6 +260,31 @@ def test_rollout(pair, scenarios, jax_run):
     np.testing.assert_allclose(states.numpy(), jax_run["states"], atol=1e-8)
     np.testing.assert_allclose(carry[0].x.numpy(), jax_run["final"]["x"],
                                atol=1e-7)
+
+
+def test_rollout_with_a_moving_circle(pair, jax_fns, scenarios):
+    """make_batch(obstacle_states=) with the circle moving at a seeded
+    per-scenario velocity (chip_smoke.moving_obstacle_states, phase 16's
+    run on the card), x0 and p0 equal to the JAX package's; the cold solve
+    and the rollout to the tolerances above, the circle advanced at its
+    lane's velocity every period."""
+    _, jr, _, tr = pair
+    states_in = chip_smoke.moving_obstacle_states(B)
+    want = _jax_run(pair, jax_fns, scenarios, states_in)
+    x0, p0, state = tr.make_batch(*scenarios, states_in)
+    np.testing.assert_array_equal(x0.numpy(), want["x0"])
+    np.testing.assert_array_equal(p0.numpy(), want["p0"])
+    ix, iv, _ = tr.obstacle_idx[2]
+    np.testing.assert_array_equal(p0[:, iv].numpy(), states_in[2][1])
+    st = tr.init_solver_state(x0, p0)
+    np.testing.assert_allclose(st.x.numpy(), want["st0"]["x"], atol=1e-8)
+    carry, states = tr.rollout_fn(N_STEPS, **ROLLOUT)(st, p0, state)
+    np.testing.assert_allclose(states.numpy(), want["states"], atol=1e-8)
+    p_end = carry[1].numpy()
+    np.testing.assert_allclose(p_end, want["p_end"], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        p_end[:, ix], p0[:, ix].numpy() + N_STEPS * tr.update_time
+        * p0[:, iv].numpy(), atol=1e-12)
 
 
 def test_solver_on_jax_compact_structure(pair, jax_run):

@@ -314,8 +314,13 @@ def test_rollout_recipe_matches_jax(case):
 
 
 def test_free_time_problems_are_not_ported():
-    """A free-time problem (tests/test_vehicles.py's Dubins case) raises,
-    naming where the work stands."""
-    veh, env = _dubins_exact(T)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.Point2point(veh, env, freeT=True)
+    """The free-time problem is ported now (tests/test_torch_free_time.py
+    holds it to the JAX package): the factory gives the JAX package's
+    class, with the motion time a variable, where it used to raise."""
+    import omg_tools_tpu as J
+    problems = []
+    for m in (J, T):
+        veh, env = _dubins_exact(m)
+        problems.append(m.Point2point(veh, env, freeT=True))
+    assert [type(p).__name__ for p in problems] == ["FreeTPoint2point"] * 2
+    assert isinstance(problems[1], T.FreeTPoint2point)
