@@ -14,7 +14,9 @@ Phases, in order; any failure raises and exits non-zero:
    (K1) of the dense and generic ALM modes and of the formation's
    x-update (4 x 85), in float32, and at the main shapes in float64; the variant each shape runs (a register class at
    the main shapes); one-call CUDA-event times (``call_ms``) and the plain
-   version's;
+   version's; and K1's global variant (systems beyond a block's shared
+   memory: float64 1 x 178, 1 x 186, 4 x 186, 1 x 262, 1 x 395, float32
+   1 x 262, ``global_kernel_phase``), which ``variant`` must pick there;
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
    horizon at 10 Hz) and its float32 runner, which must pick the
@@ -114,20 +116,34 @@ Phases, in order; any failure raises and exits non-zero:
     K1 and K2 not) and of the obstraj example's spline-trajectory circle
     (whatever structure K3's limits give it: ``compact-arrow``, its head
     has 105 rows), each with the cross-check of 11 on 16 lanes;
-15. times (after 16): the device time of K1 and K2 at every shape of 3
+17. the vast-environment closed loops in float64 on the card
+    (``vast_phase``): the scenes of examples/test_multiframe.py (a
+    MultiFrameProblem over two rooms, n_x 120), schedulerproblem_example1.py
+    (a SchedulerProblem with shift frames and local FreeTPoint2points, n_x
+    93) and schedulerproblem_example2.py (two-frame corridors, local
+    MultiFrameProblems of 186 variables: K1's global variant), the first
+    VAST_UPDATES updates of each through ``scene_loop`` as in 16: K1 in
+    every update, no K2 or K3, the frame switches, problem builds and
+    CUDA-graph captures of each update (scheduler2 must switch at least
+    once; a switch onto a cached problem must capture nothing, every
+    solved problem captures its two graphs once), the card's first solve
+    against the CPU's;
+15. times (after 17): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
     6 and of each plan of 13, and K1's in float64 at the closed loop's
-    shape (1 x 151), at the formation's (4 x 85) and at phase 16's (1 x
-    n_x); taken last, so that no profiler session but 9's (and 14's
-    trace) precedes the timed runs.
+    shape (1 x 151), at the formation's (4 x 85), at phase 16's and 17's
+    (1 x n_x) and of K1's global variant at the shapes of 3; taken last,
+    so that no profiler session but 9's (and 14's trace) precedes the
+    timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
 that tree's kernels with the same yardstick.  ``--scenes-only`` runs
-phases 1-3 (the checks), 16 and its K1 device times, and stops (no final
-line).
+phases 1-3 (the checks), 16 and its K1 device times, and stops;
+``--vast-only`` the same with phase 17 (each prints its kernels line, no
+final line).
 
 The last two lines before the final one are the ``kernels`` JSON object and
 the card's name and power limit as nvidia-smi prints them; the final line
@@ -231,6 +247,16 @@ SCENE_CHECK_BUDGET = {"outer_iter": 1, "inner_iter": 8}
 SCENE_CHECK_NOISE = 1e-2
 SCENE_SPREAD_FACTOR = 4.0
 SCENE_FLOOR = 1e-8
+# phase 17: the vast-environment closed loops in float64, the default
+# generic mode at its full budget, the first VAST_UPDATES[scene] updates
+# of each (the examples run to their goals: minutes each); scheduler2 past
+# its first frame switch (the 17th update in the JAX package on a CPU).
+# The examples' copies are not run here: in smoke mode the four took 110
+# s of a 971 s run on the card (their scenes are the loops'; run them with
+# OMG_SMOKE=1 python examples_torch/<name>.py)
+VAST_SCENES = ("multiframe", "scheduler1", "scheduler2", "scheduler_dubins")
+VAST_LOOPS = ("multiframe", "scheduler1", "scheduler2")
+VAST_UPDATES = {"multiframe": 12, "scheduler1": 12, "scheduler2": 18}
 # the batched runs with moving obstacles: bench.py's p2p_holonomic with
 # its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
@@ -267,6 +293,17 @@ K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
 K1_F64_NAME = "K1 chol_solve r=1 (psd_solve) float64, Problem.solve"
 K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
 K1_F64_SHAPE = (1, 151, 1)
+# K1's global variant (systems beyond a block's shared memory), float64
+# unless named: the scheduler's two-frame local problems (the maze test's
+# 178 rows; example2's 186, also four at once), the central formation
+# (262, and in float32) and the free-time warehouse (395)
+K1_GLOBAL_NAME = "K1 chol_solve r=1 (psd_solve), global variant"
+K1_GLOBAL_SHAPES = (("scheduler_maze", (1, 178, "float64")),
+                    ("scheduler2", (1, 186, "float64")),
+                    ("scheduler2_x4", (4, 186, "float64")),
+                    ("formation_central", (1, 262, "float64")),
+                    ("warehouse", (1, 395, "float64")),
+                    ("formation_central_f32", (1, 262, "float32")))
 # K1 at the formation's x-update: the generic mode's Newton system of the
 # four vehicles' template (n_x = 85), one system a lane
 K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
@@ -568,33 +605,38 @@ def kernel_phase(device, timed=True, kernels=KERNELS):
     return records
 
 
-def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main"):
-    """The float64 instance against the plain float64 version; with
-    ``timed``, its device time, one call's time, the library's device time
-    and the bound (f64 operations over the card's f64 peak, that of its
-    tensor cores).  Returns the kernel_check line."""
+def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main",
+                     dtype="float64"):
+    """The float64 instance (or that of ``dtype``) against the plain
+    version in the same type; with ``timed``, its device time, one call's
+    time, the library's device time and the bound (operations over the
+    card's peak for the type: float64 that of its tensor cores).  Returns
+    the kernel_check line."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
-    H, G = spd_inputs(N, n, r, seed=N + n + r, device=device,
-                      dtype=torch.float64)
+    tdtype = getattr(torch, dtype)
+    tol, peak, size = ((TOL_REL_F64, PEAK_F64_FLOPS, 8) if dtype == "float64"
+                       else (TOL_REL, PEAK_F32_FLOPS, 4))
+    H, G = spd_inputs(N, n, r, seed=N + n + r, device=device, dtype=tdtype)
     kern, plain, args = _chol_call(pk, entry, H, G)
     got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    check(bool(torch.isfinite(got).all()), f"{name} f64: non-finite output")
-    check(err <= TOL_REL_F64 * scale,
-          f"{name} f64: max |kernel - plain| {err} > {TOL_REL_F64} * {scale}")
+    check(bool(torch.isfinite(got).all()),
+          f"{name} {dtype}: non-finite output")
+    check(err <= tol * scale,
+          f"{name} {dtype}: max |kernel - plain| {err} > {tol} * {scale}")
 
     def library():
         L, _ = torch.linalg.cholesky_ex(H)
         return torch.cholesky_solve(G, L)
-    nbytes = 8 * (N * n * (n + 1) // 2 + 2 * N * n * r)
+    nbytes = size * (N * n * (n + 1) // 2 + 2 * N * n * r)
     flops = N * (n ** 3 / 3.0 + 2.0 * n * n * r)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F64_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     line = {"name": name, "shape": shape, "N": N, "n": n, "r": r,
-            "dtype": "float64", "variant": pk.variant(n, r, torch.float64),
+            "dtype": dtype, "variant": pk.variant(n, r, tdtype),
             "max_abs_err": err, "scale": scale,
             "library_err": float((library().reshape(got.shape)
                                   - want).abs().max()),
@@ -608,6 +650,24 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main"):
         line["plain_ms"] = time_ms(lambda: plain(*args), reps=3, warmup=1)
     print("kernel_check " + json.dumps(line), flush=True)
     return line
+
+
+def global_kernel_phase(device, timed):
+    """K1's global variant (systems beyond a block's shared memory) at
+    K1_GLOBAL_SHAPES against its plain version, with the tolerances of
+    the K1 rows in the same type; with ``timed``, the times of
+    ``kernel_phase_f64``.  Returns the kernel_check lines."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    lines = []
+    for tag, (N, n, dtype) in K1_GLOBAL_SHAPES:
+        check(pk.variant(n, 1, getattr(torch, dtype)) == "global",
+              f"K1 {tag}: {N} x {n} {dtype} takes "
+              f"{pk.variant(n, 1, getattr(torch, dtype))}, not global")
+        lines.append(kernel_phase_f64(K1_GLOBAL_NAME, "psd_solve", N, n, 1,
+                                      device, timed, shape=tag,
+                                      dtype=dtype))
+    return lines
 
 
 def k1_f64_record(device, launches, per_update, name=K1_F64_NAME,
@@ -730,11 +790,78 @@ def build_scene(T, scene, options=None):
             "coeffs": coeffs}})
         env.add_obstacle(obstacle)
         freeT = False
+    elif scene in VAST_SCENES:
+        problem = build_vast_scene(T, scene)
+        problem.set_options({"verbose": 0, **(options or {})})
+        return problem
     else:
         raise ValueError(f"unknown scene {scene!r}")
     problem = T.Point2point(vehicle, env, freeT=freeT)
     problem.set_options({"verbose": 0, **(options or {})})
     return problem
+
+
+def build_vast_scene(T, scene):
+    """One of phase 17's vast-environment scenes, as the examples of the
+    same names build them (examples/test_multiframe.py,
+    schedulerproblem_example1.py, schedulerproblem_example2.py,
+    schedulerproblem_dubins.py): ``multiframe`` (two rooms, a
+    MultiFrameProblem), ``scheduler1`` (shift frames, local free-time
+    problems), ``scheduler2`` (two-frame corridors in a 60 x 30 m hall, a
+    slow mover at the corner) and ``scheduler_dubins``; not initialized."""
+    if scene == "multiframe":
+        vehicle = T.Holonomic()
+        vehicle.set_initial_conditions([-3.0, 0.0])
+        vehicle.set_terminal_conditions([3.0, 0.0])
+        env = T.Environment(room=[
+            {"shape": T.Rectangle(width=5.0, height=2.0),
+             "position": [-1.5, 0.0]},
+            {"shape": T.Rectangle(width=5.0, height=2.0),
+             "position": [1.5, 0.0]}])
+        env.add_obstacle(T.Obstacle({"position": [0.0, 0.6]},
+                                    shape=T.Circle(0.2)))
+        return T.MultiFrameProblem(vehicle, env, n_frames=2)
+    if scene == "scheduler1":
+        vehicle = T.Holonomic(shapes=T.Circle(0.1))
+        vehicle.set_initial_conditions([-4.0, -4.0])
+        vehicle.set_terminal_conditions([4.0, 4.0])
+        env = T.Environment(room={"shape": T.Square(10.0)})
+        env.add_obstacle(T.Obstacle({"position": [-2.0, -2.0]},
+                                    shape=T.Rectangle(width=0.4, height=3.0)))
+        env.add_obstacle(T.Obstacle({"position": [2.0, 2.0]},
+                                    shape=T.Circle(0.6)))
+        return T.SchedulerProblem(vehicle, env, frame_size=4.0,
+                                  n_cells=[20, 20])
+    if scene == "scheduler2":
+        vehicle = T.Holonomic(shapes=T.Circle(0.5), bounds={
+            "vmax": 2, "vmin": -2, "amax": 4, "amin": -4})
+        vehicle.set_initial_conditions([5.0, 0.0])
+        vehicle.set_terminal_conditions([40.0, 20.0])
+        env = T.Environment(room={"shape": T.Rectangle(width=60, height=30),
+                                  "position": [30, 10]})
+        env.add_obstacle(T.Obstacle({"position": [10.0, 0.0]},
+                                    shape=T.Rectangle(width=2.0, height=2.0)))
+        trajectories = {"velocity": {"time": [0.0], "values": [[0.0, -0.1]]}}
+        env.add_obstacle(T.Obstacle({"position": [22.5, 12.5]},
+                                    shape=T.Rectangle(width=2.0, height=2.0),
+                                    simulation={"trajectories": trajectories}))
+        return T.SchedulerProblem(vehicle, env, frame_type="corridor",
+                                  n_frames=2, n_cells=[25, 25])
+    vehicle = T.Dubins(shapes=T.Circle(0.3), bounds={
+        "vmax": 0.7, "wmax": np.pi / 3.0, "wmin": -np.pi / 3.0})
+    vehicle.define_knots(knot_intervals=10)
+    vehicle.set_initial_conditions([2.0, 2.0, 0.0])
+    vehicle.set_terminal_conditions([8.0, 8.0, 0.0])
+    env = T.Environment(room={"shape": T.Rectangle(width=10, height=10),
+                              "position": [5, 5]})
+    env.add_obstacle(T.Obstacle({"position": [6.0, 2.0]},
+                                shape=T.Rectangle(width=1.0, height=1.0)))
+    env.add_obstacle(T.Obstacle({"position": [4.0, 2.0]},
+                                shape=T.Circle(0.4)))
+    env.add_obstacle(T.Obstacle({"position": [5.0, 6.0]},
+                                shape=T.Circle(0.4)))
+    return T.SchedulerProblem(vehicle, env, frame_type="corridor",
+                              n_frames=2, n_cells=[10, 10])
 
 
 def scenarios(B, config="p2p_holonomic"):
@@ -1256,56 +1383,104 @@ def formation_phase(T, device):
     return launches, line["k1_launches_per_admm_iteration"], newton, k1_f64
 
 
-def scene_loop(T, device, scene):
-    """Phase 16 (a): one example scene's closed loop (``Problem.solve`` +
-    ``Simulator``) in float64 on the card in the default generic mode,
-    SCENE_UPDATES[scene] updates or to its stop criterion, the launch
-    counters zeroed before and read after each update (K1 in every one, no
-    K2 or K3); then its first solve on a cut budget against the CPU's
-    from the same inputs.  Returns the loop's line."""
+class recorded_solves:
+    """Within the block, every ALM solve of every problem
+    (``Problem._run_solver``) as (problem, x0, p, lb, ub, state): the
+    scheduler's local problems are built and swapped inside the loop."""
+
+    def __enter__(self):
+        from omg_tools_torch.problems.problem import Problem
+        self.orig, self.calls = Problem._run_solver, []
+        orig, calls = self.orig, self.calls
+
+        def run(problem, parameters, lb, ub, state=None):
+            x0 = np.array(problem._x_result, np.float64)
+            st = orig(problem, parameters, lb, ub, state)
+            calls.append((problem, x0, np.array(parameters, np.float64),
+                          lb, ub, st))
+            return st
+        Problem._run_solver = run
+        return self.calls
+
+    def __exit__(self, *exc):
+        from omg_tools_torch.problems.problem import Problem
+        Problem._run_solver = self.orig
+
+
+def scene_loop(T, device, scene, n_updates=None):
+    """Phase 16 (a) and 17: one example scene's closed loop
+    (``Problem.solve`` + ``Simulator``) in float64 on the card in the
+    default generic mode, ``n_updates`` (SCENE_UPDATES[scene]) updates or
+    to its stop criterion, the launch counters zeroed before and read
+    after each update (K1 in every one, no K2 or K3); for a scheduler also
+    its frame switches, problem builds and CUDA-graph captures a update: a
+    switch onto a cached local problem must capture nothing, and every
+    solved problem captures its two graphs once.  Then the first solve on
+    a cut budget against the CPU's from the same inputs.  Returns the
+    loop's line."""
     import torch
     from omg_tools_torch import Simulator
     from omg_tools_torch.ops import psd_kernels as pk
-    from omg_tools_torch.ops.alm import ALMOptions, make_alm_solver
+    from omg_tools_torch.ops.alm import (ALMOptions, CapturedCall,
+                                         make_alm_solver)
     t0 = time.time()
     problem = build_scene(T, scene, {"device": device})
+    vehicle = problem.vehicles[0]
+    # the global goal: a scheduler points poseT at its frames' goals
+    goal = np.asarray(vehicle.poseT, np.float64)[:2]
     problem.init()
     init_s = time.time() - t0
-    tr = problem.transcription
-    check(problem._structure == "generic",
-          f"{scene}: structure {problem._structure}")
-    solver, calls = problem._solver, []
-
-    def record(*args, **kwargs):
-        calls.append((args, solver(*args, **kwargs)))
-        return calls[-1][1]
-    problem._solver = record
-    vehicle = problem.vehicles[0]
-    goal = np.asarray(vehicle.poseT, np.float64)[:2]
+    sched = hasattr(problem, "local_problem")
+    first = problem.local_problem if sched else problem
+    tr = first.transcription
+    check(first._structure == "generic",
+          f"{scene}: structure {first._structure}")
     sim = Simulator(problem)
-    wall_ms, k1, iters, feas, stopped = [], [], [], [], False
-    for _ in range(SCENE_UPDATES[scene]):
-        zero_launch_counts()
-        t1 = time.perf_counter()
-        stopped = sim.update()
-        torch.cuda.synchronize()
-        wall_ms.append(1e3 * (time.perf_counter() - t1))
-        c = launch_counts()
-        check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
-              f"{scene}: the closed loop launched {c}")
-        k1.append(c["psd_solve"])
-        iters.append(problem.solver_stats["iterations"])
-        feas.append(problem.solver_stats["feas"])
-        if stopped:
-            break
+    counts = {"frame_switches": [], "problem_builds": [],
+              "graph_captures": [], "n_x_per_update": [],
+              "k1_variant_per_update": []}
+    wall_ms, solve_ms, k1, iters, feas = [], [], [], [], []
+    stopped = False
+    switches0 = getattr(problem, "cnt_frame_switches", 0)
+    with recorded_solves() as calls:
+        for _ in range(n_updates or SCENE_UPDATES[scene]):
+            zero_launch_counts()
+            before = (getattr(problem, "cnt_frame_switches", 0),
+                      getattr(problem, "cnt_problem_builds", 0),
+                      CapturedCall.captures)
+            t1 = time.perf_counter()
+            stopped = sim.update()
+            torch.cuda.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t1))
+            c = launch_counts()
+            check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
+                  f"{scene}: the closed loop launched {c}")
+            k1.append(c["psd_solve"])
+            iters.append(problem.solver_stats["iterations"])
+            feas.append(problem.solver_stats["feas"])
+            solve_ms.append(1e3 * problem.solver_stats["time"])
+            after = (getattr(problem, "cnt_frame_switches", 0),
+                     getattr(problem, "cnt_problem_builds", 0),
+                     CapturedCall.captures)
+            for key, a, b in zip(("frame_switches", "problem_builds",
+                                  "graph_captures"), before, after):
+                counts[key].append(b - a)
+            n_x = (problem.local_problem if sched
+                   else problem).transcription.n_x
+            counts["n_x_per_update"].append(n_x)
+            counts["k1_variant_per_update"].append(
+                pk.variant(n_x, 1, torch.float64))
+            if stopped:
+                break
     pose = np.asarray(vehicle.signals["pose"], np.float64)
     d_start = float(np.linalg.norm(pose[:2, 0] - goal))
     d_end = float(np.linalg.norm(pose[:2, -1] - goal))
-    solve_ms = [1e3 * t for t in problem.update_times]
-    n_it = sum(int(st.n_iter.sum()) for _, st in calls)
-    x = calls[-1][1].x
+    n_it = sum(int(st.n_iter.sum()) for *_, st in calls)
+    x = calls[-1][-1].x
+    solved = {id(c[0]) for c in calls}
     line = {"scene": scene, "problem": type(problem).__name__,
-            "structure": problem._structure,
+            "local_problem": type(first).__name__,
+            "structure": first._structure,
             "n_x": tr.n_x, "n_g": tr.n_g, "n_p": tr.n_p,
             "k1_variant": pk.variant(tr.n_x, 1, torch.float64),
             "updates": len(wall_ms), "stopped": stopped, "init_s": init_s,
@@ -1320,9 +1495,14 @@ def scene_loop(T, device, scene):
             "goal": goal.tolist(), "final_position": pose[:2, -1].tolist(),
             "goal_distance_start": d_start, "goal_distance_end": d_end,
             "dtype": str(x.dtype), "device": str(x.device)}
-    if problem.__class__.__name__ == "FreeTPoint2point":
+    if sched:
+        line.update(counts, frame_switches_at_init=switches0,
+                    problems_solved=len(solved),
+                    frame_switches_total=problem.cnt_frame_switches,
+                    problem_builds_total=problem.cnt_problem_builds)
+    if type(first).__name__ == "FreeTPoint2point":
         line["motion_time_left_s"] = float(
-            problem.get_variables(problem, "T")[0])
+            first.get_variables(first, "T")[0])
     print("scene_loop " + json.dumps(line), flush=True)
     check(all(k > 0 for k in k1), f"{scene}: an update launched no K1: {k1}")
     check(x.is_cuda and x.dtype == torch.float64,
@@ -1331,25 +1511,37 @@ def scene_loop(T, device, scene):
     check(d_end < d_start, f"{scene}: no progress: {d_start} -> {d_end}")
     check(d_end < SCENE_GOAL_M or not stopped,
           f"{scene}: stopped {d_end} m from the goal")
+    if sched:
+        check(sum(counts["graph_captures"]) == 2 * len(solved),
+              f"{scene}: {counts['graph_captures']} captures for "
+              f"{len(solved)} solved problems (two graphs each, once)")
+        for sw, bu, cap in zip(counts["frame_switches"],
+                               counts["problem_builds"],
+                               counts["graph_captures"]):
+            check(not (sw and not bu and cap),
+                  f"{scene}: a switch onto a cached problem captured {cap} "
+                  "graphs")
 
     # the first solve on the cut budget: the card against the CPU
-    x0, p, lb, ub = calls[0][0][:4]
+    x0, p, lb, ub = calls[0][1:5]
     gen = torch.Generator().manual_seed(0)
-    x0 = x0 + SCENE_CHECK_NOISE * torch.randn(
-        x0.shape, generator=gen, dtype=x0.dtype).to(x0.device)
+    x0 = torch.as_tensor(x0)[None]
+    x0 = x0 + SCENE_CHECK_NOISE * torch.randn(x0.shape, generator=gen,
+                                              dtype=x0.dtype)
+    p = torch.as_tensor(p)[None]
 
     def cut_solve(x0_, p_):
         cut = make_alm_solver(
             tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub,
-            ALMOptions(**SCENE_CHECK_BUDGET), row_scale=problem._row_scale,
-            obj_scale=problem._obj_scale, fg=tr.objective_and_constraints)
+            ALMOptions(**SCENE_CHECK_BUDGET), row_scale=first._row_scale,
+            obj_scale=first._obj_scale, fg=tr.objective_and_constraints)
         return cut(x0_, p_, lb, ub).x.double().cpu().numpy()
-    card = cut_solve(x0, p)
+    card = cut_solve(x0.to(device), p.to(device))
     t1 = time.time()
-    cpu = cut_solve(x0.cpu(), p.cpu())
+    cpu = cut_solve(x0, p)
     cpu_s = time.time() - t1
     noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
-    moved = cut_solve(x0.cpu() * (1 + F64_PERTURB * noise), p.cpu())
+    moved = cut_solve(x0 * (1 + F64_PERTURB * noise), p)
     err = float(np.abs(card - cpu).max())
     sens = float(np.abs(moved - cpu).max())
     tol = max(SCENE_SPREAD_FACTOR * sens, SCENE_FLOOR)
@@ -1371,6 +1563,30 @@ def scene_phase(T, device, cache_root):
         example_phase(scene + ".py")
     obstacle_phase(T, device, cache_root)
     return loops
+
+
+def vast_phase(T, device):
+    """Phase 17: the vast-environment closed loops (``VAST_LOOPS``, the
+    first VAST_UPDATES[scene] updates each).  Returns the loops' lines."""
+    loops = {scene: scene_loop(T, device, scene, VAST_UPDATES[scene])
+             for scene in VAST_LOOPS}
+    s2 = loops["scheduler2"]
+    check("global" in s2["k1_variant_per_update"],
+          f"scheduler2 ran K1's {set(s2['k1_variant_per_update'])}, not "
+          "global")
+    check(sum(s2["frame_switches"]) >= 1,
+          "scheduler2 saw no frame switch")
+    return loops
+
+
+def loop_records(device, loops):
+    """The kernels-line records of K1 float64 at each closed loop's
+    shape, with the loop's launches (phase 15)."""
+    return [("psd_solve", k1_f64_record(
+        device, sum(loop["k1_launches_per_update"]),
+        loop["k1_launches_per_update"], name=f"{K1_F64_NAME}, {scene}",
+        shape=(1, loop["n_x"], 1), tag=scene))
+        for scene, loop in loops.items()]
 
 
 def moving_obstacle_states(B, seed=0):
@@ -2175,16 +2391,19 @@ def run(cache_root):
     device = torch.device("cuda")
     if "--kernels-only" in sys.argv[1:]:
         kernel_phase(device)
+        global_kernel_phase(device, timed=True)
         return
     kernel_phase(device, timed=False)
-    if "--scenes-only" in sys.argv[1:]:
-        loops = scene_phase(T, device, cache_root)
-        for scene, loop in loops.items():
-            k1_f64_record(device, sum(loop["k1_launches_per_update"]),
-                          loop["k1_launches_per_update"],
-                          name=f"{K1_F64_NAME}, {scene}",
-                          shape=(1, loop["n_x"], 1), tag=scene)
-        return
+    global_kernel_phase(device, timed=False)
+    for flag, phase in (("--scenes-only", scene_phase),
+                        ("--vast-only", lambda T, device, _: vast_phase(
+                            T, device))):
+        if flag in sys.argv[1:]:
+            records = loop_records(device, phase(T, device, cache_root))
+            global_kernel_phase(device, timed=True)
+            print(json.dumps({"kernels": [rec for _, rec in records]}),
+                  flush=True)
+            return
     runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
         setup_phase(T, device)
     check(not hit, "the first build found its host tensors in the cache")
@@ -2208,8 +2427,11 @@ def run(cache_root):
     # phase 16: the free-time and rotating-obstacle closed loops, the
     # moving and spline-trajectory obstacles batched
     loops = scene_phase(T, device, cache_root)
+    # phase 17: the vast-environment closed loops
+    loops.update(vast_phase(T, device))
     # phase 15: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
+    global_kernel_phase(device, timed=True)
     k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
@@ -2220,12 +2442,7 @@ def run(cache_root):
     records.append(("psd_solve", k1_f64_record(
         device, k1_fleet_f64, None, name=K1_FLEET_NAME + " float64",
         shape=K1_FLEET_SHAPE, tag="formation")))
-    for scene, loop in loops.items():
-        records.append(("psd_solve", k1_f64_record(
-            device, sum(loop["k1_launches_per_update"]),
-            loop["k1_launches_per_update"],
-            name=f"{K1_F64_NAME}, {scene}", shape=(1, loop["n_x"], 1),
-            tag=scene)))
+    records += loop_records(device, loops)
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]

@@ -13,6 +13,9 @@ with fixed or free motion time (``FreeTPoint2point``) and free end
 points (``FreeEndPoint2point``), moving, rotating and spline-trajectory
 obstacles, the distributed formation (``Fleet``, ``FormationPoint2point``
 and the device loop ``omg_tools_torch.parallel.FleetRunner``), the
+vast-environment planner (``SchedulerProblem``: an ``AStarPlanner`` path,
+moving frames, local ``FreeTPoint2point`` or ``MultiFrameProblem``s) with
+``EnvironmentGUI``'s headless data model, the
 Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins, Bicycle,
 AGV, Trailer, Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the
 batched rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and
@@ -51,6 +54,11 @@ from .problems.point2point import (Point2point, Point2pointProblem,
 from .problems.batch import BatchedP2PRunner
 from .problems.admm import ADMMProblem, DistributedProblem
 from .problems.formation import FormationPoint2point
+from .problems.multiframeproblem import MultiFrameProblem
+from .problems.schedulerproblem import SchedulerProblem
+from .problems.globalplanner import AStarPlanner, Grid
+from .environment.frame import Frame, ShiftFrame, CorridorFrame
 from .execution.simulator import Simulator, Deployer
 from .execution.plotlayer import PlotLayer
+from .gui.gui import EnvironmentGUI
 from .ops.alm import ALMOptions, ALMState

@@ -71,6 +71,22 @@
 //   - float32 in every class; float64 (right, not fast) in the 64-row class
 //     and the block variant.  Full-precision FMAs only, no tensor cores:
 //     these Newton systems are ill-conditioned.
+//   - Systems too large for a block's shared memory (float64 above ~168
+//     rows: the scheduler's two-frame local problems, 178-186 rows; the
+//     central formation, 262; the free-time warehouse, 395) take the
+//     global variant (chol_global_kernel, its own entry point
+//     omg_chol_solve_ws_*): one block of 256 threads a system, factored
+//     in place in a global-memory workspace the caller provides (at most
+//     1.25 MB a system, which the 50 MB L2 holds) by a right-looking
+//     blocked Cholesky over panels of 32 columns.  Each panel is staged in
+//     shared memory (rows at an odd stride of 33 elements), factored there
+//     column by column, written back, and the trailing lower triangle is
+//     updated from it (a warp a row, lanes along the row, the row's 32
+//     panel entries in registers).  The right-hand sides ride along as r
+//     augmented rows [H; G'], so the factorization leaves (L^-1 G)' in
+//     them; the backward substitution then runs column by column over
+//     shared memory.  Simple and right, not fast: one block walks every
+//     pivot of its system.
 // The variant is chosen by the caller (omg_tools_torch/ops/psd_kernels.py
 // variant()); the entry point checks that it fits and returns
 // cudaErrorInvalidValue, launching nothing, when it does not.
@@ -499,6 +515,123 @@ chol_block_kernel(const T* __restrict__ H, const T* __restrict__ G,
   }
 }
 
+// Global variant: one block a system, factored in place in W, m = n + r
+// rows of n (the lower triangle of H, then the r rows of G'), row-major.
+constexpr int kPanel = 32;             // columns a panel
+constexpr int kPanelLd = kPanel + 1;   // a staged panel row's stride
+constexpr int kPanelThreads = 256;     // threads a block
+
+template <typename T>
+__global__ void __launch_bounds__(kPanelThreads)
+chol_global_kernel(const T* __restrict__ H, const T* __restrict__ G,
+                   T* __restrict__ X, T* __restrict__ Wk, int N, int n,
+                   int r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = nt >> 5;
+  const int m = n + r;
+  const long long sys = blockIdx.x;
+  T* A = Wk + sys * static_cast<long long>(m) * n;
+  const T* Hs = H + sys * static_cast<long long>(n) * n;
+  const T* Gs = G + sys * static_cast<long long>(n) * r;
+  T* P = reinterpret_cast<T*>(smem_raw);  // a panel; later the z columns
+  const size_t p_len =
+      static_cast<size_t>(m) * kPanelLd > static_cast<size_t>(r) * n
+          ? static_cast<size_t>(m) * kPanelLd
+          : static_cast<size_t>(r) * n;
+  T* dinv = P + p_len;
+  // the workspace: H's lower triangle, then G' as rows n .. m - 1
+  for (int i = warp; i < n; i += warps)
+    for (int k = lane; k <= i; k += 32)
+      A[static_cast<size_t>(i) * n + k] = Hs[static_cast<size_t>(i) * n + k];
+  for (int e = tid; e < n * r; e += nt)
+    A[static_cast<size_t>(n + e % r) * n + e / r] = Gs[e];
+  __syncthreads();
+  for (int k0 = 0; k0 < n; k0 += kPanel) {
+    const int nb = n - k0 < kPanel ? n - k0 : kPanel;
+    const int rows = m - k0;
+    // stage the panel: rows k0 .. m - 1, columns k0 .. k0 + nb - 1 (the
+    // lower triangle of its diagonal block)
+    for (int e = tid; e < rows * nb; e += nt) {
+      const int i = e / nb, t = e % nb;
+      if (t <= i)
+        P[i * kPanelLd + t] = A[static_cast<size_t>(k0 + i) * n + k0 + t];
+    }
+    __syncthreads();
+    // factor it column by column
+    for (int j = 0; j < nb; ++j) {
+      const T d = P[j * kPanelLd + j];
+      const T inv = rsq(d);
+      __syncthreads();  // every thread has read the pivot
+      for (int i = j + 1 + tid; i < rows; i += nt) P[i * kPanelLd + j] *= inv;
+      if (tid == 0) {
+        P[j * kPanelLd + j] = d * inv;
+        dinv[k0 + j] = inv;
+      }
+      __syncthreads();
+      const int w = nb - j - 1;  // the panel's columns right of j
+      if (w > 0) {
+        for (int e = tid; e < (rows - j - 1) * w; e += nt) {
+          const int i = j + 1 + e / w, t = j + 1 + e % w;
+          if (t <= i)
+            P[i * kPanelLd + t] =
+                fma(-P[i * kPanelLd + j], P[t * kPanelLd + j],
+                    P[i * kPanelLd + t]);
+        }
+      }
+      __syncthreads();
+    }
+    // the panel's columns of L back to the workspace
+    for (int e = tid; e < rows * nb; e += nt) {
+      const int i = e / nb, t = e % nb;
+      if (t <= i)
+        A[static_cast<size_t>(k0 + i) * n + k0 + t] = P[i * kPanelLd + t];
+    }
+    // the trailing lower triangle, and the augmented rows: A[i][c] -=
+    // L[i][panel] . L[c][panel] for c in k0 + nb .. min(i, n - 1); a warp
+    // a row, its panel entries in registers, lanes along the row
+    const int k1 = k0 + nb;
+    for (int i = k1 + warp; i < m; i += warps) {
+      T a[kPanel];
+#pragma unroll
+      for (int t = 0; t < kPanel; ++t)
+        a[t] = t < nb ? P[(i - k0) * kPanelLd + t] : T(0);
+      const int cend = i < n - 1 ? i : n - 1;
+      for (int c = k1 + lane; c <= cend; c += 32) {
+        const T* Pc = P + (c - k0) * kPanelLd;
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t)
+          if (t < nb) acc[t & 3] = fma(a[t], Pc[t], acc[t & 3]);
+        T* dst = A + static_cast<size_t>(i) * n + c;
+        *dst -= sum_parts(acc);
+      }
+    }
+    __syncthreads();  // the workspace's updates before the next panel
+  }
+  // backward substitution: z_q = (L^-1 G)'[q] from the augmented rows,
+  // x = L'^-1 z column by column, x_i written as it is found
+  T* Z = P;
+  for (int e = tid; e < r * n; e += nt)
+    Z[e] = A[static_cast<size_t>(n) * n + e];
+  __syncthreads();
+  T* Xs = X + sys * static_cast<long long>(n) * r;
+  for (int i = n - 1; i >= 0; --i) {
+    const T di = dinv[i];
+    const T* Li = A + static_cast<size_t>(i) * n;
+    for (int e = tid; e < r * i; e += nt) {
+      const int q = e / i, k = e % i;
+      Z[q * n + k] = fma(-Li[k], Z[q * n + i] * di, Z[q * n + k]);
+    }
+    for (int q = tid; q < r; q += nt)
+      Xs[static_cast<size_t>(i) * r + q] = Z[q * n + i] * di;
+    __syncthreads();
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
@@ -567,6 +700,31 @@ int launch_block(const T* H, const T* G, T* X, int N, int n, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The global variant's shared bytes: a staged panel of all m = n + r rows
+// (or the r z columns, if larger) and the n inverse pivots.
+template <typename T>
+size_t global_smem(int n, int r) {
+  const size_t m = static_cast<size_t>(n) + r;
+  const size_t panel = m * kPanelLd;
+  const size_t zs = static_cast<size_t>(r) * n;
+  return sizeof(T) * ((panel > zs ? panel : zs) + n);
+}
+
+template <typename T>
+int launch_global(const T* H, const T* G, T* X, T* W, int N, int n, int r,
+                  void* stream) {
+  if (N <= 0 || n <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = global_smem<T>(n, r);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = chol_global_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<N, kPanelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      H, G, X, W, N, n, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // variant: the class (32, 48 or 64 rows; float64 has 64 only), or 0 for
 // the block variant.
 template <typename T>
@@ -598,10 +756,20 @@ int omg_chol_solve_f32(const float* H, const float* G, float* X, int N, int n,
                        int r, int variant, void* stream) {
   return launch(H, G, X, N, n, r, variant, stream);
 }
+// The global variant: the same X, factored in W, a workspace of
+// N (n + r) n elements.
+int omg_chol_solve_ws_f32(const float* H, const float* G, float* X, float* W,
+                          int N, int n, int r, void* stream) {
+  return launch_global(H, G, X, W, N, n, r, stream);
+}
 #else
 int omg_chol_solve_f64(const double* H, const double* G, double* X, int N,
                        int n, int r, int variant, void* stream) {
   return launch(H, G, X, N, n, r, variant, stream);
+}
+int omg_chol_solve_ws_f64(const double* H, const double* G, double* X,
+                          double* W, int N, int n, int r, void* stream) {
+  return launch_global(H, G, X, W, N, n, r, stream);
 }
 #endif
 

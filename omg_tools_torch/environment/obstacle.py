@@ -152,6 +152,11 @@ class Obstacle(OptiChild):
                 self.define_constraint(con, -BIG, 0.0)
 
     def set_parameters(self, current_time):
+        src = getattr(self, "source", None)
+        if src is not None:
+            # a slot of a scheduler's local problem pointed at a live
+            # obstacle: the parameters are the live obstacle's
+            return {self: src.set_parameters(current_time)[src]}
         parameters = {self: {}}
         if not self.options["spline_traj"]:
             parameters[self]["x"] = self.signals["position"][:, -1]

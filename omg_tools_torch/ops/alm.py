@@ -139,9 +139,13 @@ class CapturedCall:
     it copies are kept (:func:`ops.spline.keep_device_constants`) as long
     as the graph.  Nothing in ``fn`` may read a value back to the host.
     K1's launches in a replay are counted at the replay
-    (``psd_solve.launches``); the capture launches nothing."""
+    (``psd_solve.launches``); the capture launches nothing.  Every capture
+    adds one to the class attribute ``captures``."""
+
+    captures = 0
 
     def __init__(self, fn, args):
+        CapturedCall.captures += 1
         device = args[0].device
         self.inputs = [a.clone() for a in args]
         side = torch.cuda.Stream(device)

@@ -6,7 +6,9 @@
 A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
 tensors (float32 or float64) it launches the hand-written Hopper kernel of
 ``csrc/chol_solve.cu`` in the variant that ``variant`` picks, and raises on
-what the kernel does not take.  Each wrapper counts its kernel launches in
+what the kernel does not take.  A system too large for a block's shared
+memory takes the ``global`` variant, which factors it in a global-memory
+workspace that the wrapper allocates (n + r rows of n a system).  Each wrapper counts its kernel launches in
 a plain integer attribute, ``launches``; a K1 call made while a CUDA graph
 is being captured launches nothing and counts in ``psd_solve.captured``
 instead, and each replay of that graph adds its calls to ``launches``
@@ -29,13 +31,20 @@ __all__ = ["psd_solve", "psd_solve_multi", "psd_solve_plain",
 # the kernel's variants and the code its C entry point takes for each: the
 # register classes by the rows a warp holds (n, plus the augmented row g'
 # when r = 1; float64 has the 64-row class only), then one system a block
-# for anything larger
-VARIANTS = {"reg32": 32, "reg48": 48, "reg64": 64, "block": 0}
+# in shared memory for anything larger, then one system a block in a
+# global-memory workspace (an entry point of its own, no code)
+VARIANTS = {"reg32": 32, "reg48": 48, "reg64": 64, "block": 0,
+            "global": None}
 _CLASSES = {torch.float32: ("reg32", "reg48", "reg64"),
             torch.float64: ("reg64",)}
-# the library (``csrc/<name>.cu``) and C entry point of each element type
-_ENTRY = {torch.float32: ("chol_solve", "omg_chol_solve_f32"),
-          torch.float64: ("chol_solve_f64", "omg_chol_solve_f64")}
+# the library (``csrc/<name>.cu``) and C entry points (the variants with a
+# code, the global variant) of each element type
+_ENTRY = {torch.float32: ("chol_solve", "omg_chol_solve_f32",
+                          "omg_chol_solve_ws_f32"),
+          torch.float64: ("chol_solve_f64", "omg_chol_solve_f64",
+                          "omg_chol_solve_ws_f64")}
+# a block's shared memory on sm_90 (kMaxSmem in csrc/chol_solve.cu)
+MAX_SMEM = 232448
 
 
 def chol_solve_plain(H, G):
@@ -73,19 +82,34 @@ def psd_solve_multi_plain(D, G):
     return X.reshape(G.shape)
 
 
+def block_smem(n, r, itemsize):
+    """The shared bytes of the block variant at (n, r): the rows of the
+    lower triangle (and g' when r = 1) at csrc/chol_solve.cu's row stride,
+    the inverse pivots and, for r > 1, the panel (``launch_block``)."""
+    w = 16 // itemsize
+    ld = -(-n // w) * w
+    if (ld // w) % 2 == 0:
+        ld += w
+    rows = n + 1 if r == 1 else n
+    return itemsize * (rows * ld + -(-n // w) * w + (0 if r == 1 else n * r))
+
+
 def variant(n, r, dtype=torch.float32):
     """The kernel variant that solves (n, n) systems with r right-hand
     sides: the smallest register class of ``dtype`` that holds n rows
     (n + 1 for r = 1, whose right-hand side rides along as an augmented
-    row), else ``block``.  Whether a system fits a block's shared memory
-    is the C entry point's to check: it refuses one that does not."""
+    row), else ``block`` where the system fits a block's shared memory,
+    else ``global``.  The C entry points check again and refuse a system
+    their variant does not take (the global one: n + r rows whose staged
+    panel exceeds shared memory, ~870 float64 rows)."""
     if dtype not in _ENTRY:
         raise TypeError(f"the kernels take float32 or float64, not {dtype}")
     rows = n + (r == 1)
     for name in _CLASSES[dtype]:
         if rows <= VARIANTS[name]:
             return name
-    return "block"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return "block" if block_smem(n, r, itemsize) <= MAX_SMEM else "global"
 
 
 def _check(H, R):
@@ -104,14 +128,24 @@ def _check(H, R):
 
 
 def _launch(H, R, out, N, n, r):
-    """Launch through the C entry point in the variant ``variant`` picks;
+    """Launch through the C entry point of the variant ``variant`` picks;
     it refuses (cudaErrorInvalidValue, nothing launched) a variant that
-    does not fit, such as a system too large for a block's shared memory."""
-    source, entry = _ENTRY[H.dtype]
-    fn = getattr(_build.load(source), entry)
-    err = fn(H.data_ptr(), R.data_ptr(), out.data_ptr(), N, n, r,
-             VARIANTS[variant(n, r, H.dtype)],
-             torch.cuda.current_stream(H.device).cuda_stream)
+    does not fit, such as a system too large for a block's shared memory.
+    The global variant factors in a workspace allocated here (inside a
+    CUDA graph's capture, from the graph's pool)."""
+    source, entry, entry_ws = _ENTRY[H.dtype]
+    lib = _build.load(source)
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    name = variant(n, r, H.dtype)
+    if name == "global":
+        work = torch.empty(N * (n + r) * n, dtype=H.dtype, device=H.device)
+        err = getattr(lib, entry_ws)(H.data_ptr(), R.data_ptr(),
+                                     out.data_ptr(), work.data_ptr(), N, n,
+                                     r, stream)
+    else:
+        err = getattr(lib, entry)(H.data_ptr(), R.data_ptr(),
+                                  out.data_ptr(), N, n, r, VARIANTS[name],
+                                  stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed (cudaError {err})")
 

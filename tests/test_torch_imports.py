@@ -192,6 +192,47 @@ def test_subprocess_builds_the_new_scenes_without_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+# the vast-environment planner (frames, A*, the multi-frame and scheduler
+# problems, the GUI's headless data model) as on the card's machine: JAX
+# and tkinter are not imported
+_CHILD_VAST = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+import chip_smoke
+for scene in chip_smoke.VAST_SCENES:
+    problem = chip_smoke.build_scene(T, scene, {"device": "cpu"})
+    problem.init()
+    local = getattr(problem, "local_problem", problem)
+    assert local.transcription.n_x > 0
+gui = T.EnvironmentGUI(width=8.0, height=8.0, display=False)
+gui.on_click((100, 100), "circle")
+env = gui.build_environment()
+assert len(env.obstacles) == 1
+planner = T.AStarPlanner(env, [16, 16], [-3.0, -3.0], [3.0, 3.0])
+assert len(planner.get_path()) > 2
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_builds_the_vast_scenes_without_jax_or_tkinter():
+    banned = BANNED + ("tkinter",)
+    out = subprocess.run([sys.executable, "-c", _CHILD_VAST % (banned,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "DISPLAY": ""},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

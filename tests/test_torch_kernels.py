@@ -232,12 +232,14 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                            .transpose(-1, -2))
     with pytest.raises(ValueError):
         pk.psd_solve(Hd, Gd[..., :3, 0].contiguous())
-    # too large for the kernel's shared-memory layout: the C entry point
-    # refuses it and nothing is launched
+    # too large for the kernel's shared-memory layouts (since the global
+    # variant, a staged panel of 2,001 x 33 floats exceeds a block's 227
+    # KB): the C entry point refuses it and nothing is launched
     before = pk.psd_solve.launches
-    big = torch.eye(300, device=cuda_device)[None].contiguous()
+    big = torch.eye(2000, device=cuda_device)[None].contiguous()
+    assert pk.variant(2000, 1, torch.float32) == "global"
     with pytest.raises(RuntimeError, match="cudaError"):
-        pk.psd_solve(big, torch.ones((1, 300), device=cuda_device))
+        pk.psd_solve(big, torch.ones((1, 2000), device=cuda_device))
     assert pk.psd_solve.launches == before
 
 
