@@ -15,8 +15,9 @@ Phases, in order; any failure raises and exits non-zero:
    x-update (4 x 85), in float32, and at the main shapes in float64; the variant each shape runs (a register class at
    the main shapes); one-call CUDA-event times (``call_ms``) and the plain
    version's; and K1's global variant (systems beyond a block's shared
-   memory: float64 1 x 178, 1 x 186, 4 x 186, 1 x 262, 1 x 395, float32
-   1 x 262, ``global_kernel_phase``), which ``variant`` must pick there;
+   memory: float64 1 x 178, 1 x 186, 4 x 186, 1 x 203, 1 x 262, 1 x 395,
+   float32 1 x 262, ``k1_shapes_phase``), which ``variant`` must pick
+   there, and K1 float64 at the G-code window (1 x 50, ``reg64``);
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
    horizon at 10 Hz) and its float32 runner, which must pick the
@@ -43,10 +44,13 @@ Phases, in order; any failure raises and exits non-zero:
    rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
    counters are zeroed before and read after: K3 must have run, K1 and K2
    not;
-8. parity: bench.py's gate (bench.py:404-446) on that runner: the
-   open-loop control parity of scenario 0 along the reference rollout of
-   the port's scipy solver (``tools/parity.py``, 12 steps, computed in
-   this run, its wall time printed), through K3;
+8. parity (its gate after 18): bench.py's gate (bench.py:404-446) on
+   that runner, built again from the cache (its batch held equal to the
+   main path's): the open-loop control parity of scenario 0 along the
+   reference rollout of the port's scipy solver (``tools/parity.py``, 12
+   steps, computed in this run by this script in a process of its own,
+   started after 4 and run beside the device phases; its time printed),
+   through K3;
 9. profile: one fused MPC step traced with torch.profiler -- the device's
    kernel time against the step's wall time, the device time of K1, K2 and
    K3, and the host time of each span;
@@ -128,28 +132,44 @@ Phases, in order; any failure raises and exits non-zero:
     once; a switch onto a cached problem must capture nothing, every
     solved problem captures its two graphs once), the card's first solve
     against the CPU's;
-15. times (after 17): the device time of K1 and K2 at every shape of 3
+18. G-code machining and the central formation in float64 on the card
+    (``gcode_phase``): the scenes of
+    examples/GCode_examples/gcodeproblem_slot_multi.py and
+    gcodeproblem_rsq5.py (a Tool in a GCodeSchedulerProblem's rolling
+    window of two segments, local GCodeProblems of 50 variables: K1
+    reg64) and examples/formation_holonomic_central.py (three Holonomic
+    vehicles in one FormationPoint2pointCentral, n_x 203: K1's global
+    variant), the first GCODE_UPDATES updates of each through
+    ``scene_loop`` as in 16: K1 in every update, no K2 or K3, the window
+    rolls, problem builds and CUDA-graph captures of each update; every
+    update feasible to < 1e-3, slot_multi's window rolls at least once,
+    rsq5's tool stays in its first tube, the formation's centres agree to
+    1e-3 m; the card's first solve against the CPU's; within 150 s;
+15. times (after 18 and 8): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
     6 and of each plan of 13, and K1's in float64 at the closed loop's
-    shape (1 x 151), at the formation's (4 x 85), at phase 16's and 17's
-    (1 x n_x) and of K1's global variant at the shapes of 3; taken last,
-    so that no profiler session but 9's (and 14's trace) precedes the
-    timed runs.
+    shape (1 x 151), at the formation's (4 x 85), at phase 16's, 17's
+    and 18's (1 x n_x) and of K1's global variant and of K1 at the G-code
+    window (1 x 50) at the shapes of 3; taken last, so that no profiler
+    session but 9's (and 14's trace) precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
 that tree's kernels with the same yardstick.  ``--scenes-only`` runs
 phases 1-3 (the checks), 16 and its K1 device times, and stops;
-``--vast-only`` the same with phase 17 (each prints its kernels line, no
-final line).
+``--vast-only`` the same with phase 17 and ``--gcode-only`` with phase 18
+(each prints its kernels line, no final line).
 
-The last two lines before the final one are the ``kernels`` JSON object and
-the card's name and power limit as nvidia-smi prints them; the final line
-is ``{"ok": true, "device": {...}}``.
+The line before the ``kernels`` JSON object gives the script's wall time
+(``elapsed``, the build included); the last two lines before the final
+one are the ``kernels`` object and the card's name and power limit as
+nvidia-smi prints them; the final line is ``{"ok": true, "device":
+{...}}``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -196,6 +216,9 @@ REF_FEAS_GATE = 1e-3      # bench.py:445
 # steps took 378 s on the card's host, so the depth is cut to 12
 # (tests/test_parity.py's), which still covers the knot passage at step 10
 PARITY_STEPS = 12
+# the reference (host float64, minutes) runs in a process of its own from
+# phase 4 on, beside the device phases; the gate waits at most this long
+PARITY_REFERENCE_TIMEOUT_S = 900
 CL_UPDATES = 15           # closed loop, quadratic mode (tests/test_p2p.py)
 # the generic mode, three updates on a cut budget: on the card's host an
 # iteration of it (J, g and the objective's Hessian by torch.func every
@@ -257,6 +280,30 @@ SCENE_FLOOR = 1e-8
 VAST_SCENES = ("multiframe", "scheduler1", "scheduler2", "scheduler_dubins")
 VAST_LOOPS = ("multiframe", "scheduler1", "scheduler2")
 VAST_UPDATES = {"multiframe": 12, "scheduler1": 12, "scheduler2": 18}
+# phase 18: G-code machining and the central formation in float64, the
+# default generic mode at its full budget, the first 12 updates each: the
+# scenes of examples/GCode_examples/gcodeproblem_slot_multi.py (its first
+# two blocks have zero length: the window rolls in updates 0 and 1) and
+# gcodeproblem_rsq5.py (rings, the machining velocity limit), both at the
+# examples' simulator settings, and examples/formation_holonomic_central.py
+# (three Holonomic vehicles in one NLP, n_x 203: K1's global variant).
+# The gates: every update feasible (GCODE_FEAS_GATE), slot_multi's window
+# rolls at least once on K1 reg64, rsq5's tool stays in its first tube
+# (|y| < GCODE_TUBE_Y m, the tube's half width 0.4 m), the formation takes
+# K1 global and its centres spread less than FORMATION_SPREAD_M
+# (tests/test_distributed.py:47-53)
+GCODE_PROGRAMS = {
+    "gcode_slot_multi": ("slot_multi.nc", {"tolerance": 0.3}),
+    "gcode_rsq5": ("rsq5.nc", {"tolerance": 0.4,
+                               "options": {"vel_limit": "machining"}})}
+GCODE_LOOPS = ("gcode_slot_multi", "gcode_rsq5", "formation_central")
+GCODE_UPDATES = {"gcode_slot_multi": 12, "gcode_rsq5": 12,
+                 "formation_central": 12}
+GCODE_SIMULATOR = {"sample_time": 0.002, "update_time": 0.02}
+GCODE_FEAS_GATE = 1e-3
+GCODE_TUBE_Y = 0.4
+FORMATION_SPREAD_M = 1e-3
+GCODE_PHASE_BUDGET_S = 150.0
 # the batched runs with moving obstacles: bench.py's p2p_holonomic with
 # its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
@@ -295,15 +342,21 @@ K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
 K1_F64_SHAPE = (1, 151, 1)
 # K1's global variant (systems beyond a block's shared memory), float64
 # unless named: the scheduler's two-frame local problems (the maze test's
-# 178 rows; example2's 186, also four at once), the central formation
-# (262, and in float32) and the free-time warehouse (395)
+# 178 rows; example2's 186, also four at once), the central formation of
+# examples/formation_holonomic_central.py (203), a system of 262 rows (in
+# float64 and float32: float32 K1 leaves its block variant above 236 rows)
+# and the free-time warehouse (395)
 K1_GLOBAL_NAME = "K1 chol_solve r=1 (psd_solve), global variant"
 K1_GLOBAL_SHAPES = (("scheduler_maze", (1, 178, "float64")),
                     ("scheduler2", (1, 186, "float64")),
                     ("scheduler2_x4", (4, 186, "float64")),
-                    ("formation_central", (1, 262, "float64")),
+                    ("formation_central", (1, 203, "float64")),
+                    ("n262", (1, 262, "float64")),
                     ("warehouse", (1, 395, "float64")),
-                    ("formation_central_f32", (1, 262, "float32")))
+                    ("n262_f32", (1, 262, "float32")))
+# K1 float64 in a register class at phase 18's G-code window (n_x 50: the
+# right-hand side rides as a row, 51 <= 64), with the variant it must take
+K1_REG_SHAPES = (("gcode_window", (1, 50, "float64"), "reg64"),)
 # K1 at the formation's x-update: the generic mode's Newton system of the
 # four vehicles' template (n_x = 85), one system a lane
 K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
@@ -652,19 +705,23 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main",
     return line
 
 
-def global_kernel_phase(device, timed):
+def k1_shapes_phase(device, timed):
     """K1's global variant (systems beyond a block's shared memory) at
-    K1_GLOBAL_SHAPES against its plain version, with the tolerances of
-    the K1 rows in the same type; with ``timed``, the times of
-    ``kernel_phase_f64``.  Returns the kernel_check lines."""
+    K1_GLOBAL_SHAPES, and K1 at K1_REG_SHAPES, against its plain version,
+    with the tolerances of the K1 rows in the same type; each shape must
+    take its variant.  With ``timed``, the times of ``kernel_phase_f64``.
+    Returns the kernel_check lines."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
     lines = []
-    for tag, (N, n, dtype) in K1_GLOBAL_SHAPES:
-        check(pk.variant(n, 1, getattr(torch, dtype)) == "global",
-              f"K1 {tag}: {N} x {n} {dtype} takes "
-              f"{pk.variant(n, 1, getattr(torch, dtype))}, not global")
-        lines.append(kernel_phase_f64(K1_GLOBAL_NAME, "psd_solve", N, n, 1,
+    shapes = [(K1_GLOBAL_NAME, tag, shape, "global")
+              for tag, shape in K1_GLOBAL_SHAPES] + \
+        [(K1_F64_NAME, tag, shape, var) for tag, shape, var in K1_REG_SHAPES]
+    for name, tag, (N, n, dtype), want in shapes:
+        var = pk.variant(n, 1, getattr(torch, dtype))
+        check(var == want,
+              f"K1 {tag}: {N} x {n} {dtype} takes {var}, not {want}")
+        lines.append(kernel_phase_f64(name, "psd_solve", N, n, 1,
                                       device, timed, shape=tag,
                                       dtype=dtype))
     return lines
@@ -790,8 +847,9 @@ def build_scene(T, scene, options=None):
             "coeffs": coeffs}})
         env.add_obstacle(obstacle)
         freeT = False
-    elif scene in VAST_SCENES:
-        problem = build_vast_scene(T, scene)
+    elif scene in VAST_SCENES or scene in GCODE_LOOPS:
+        problem = (build_vast_scene(T, scene) if scene in VAST_SCENES
+                   else build_gcode_scene(T, scene))
         problem.set_options({"verbose": 0, **(options or {})})
         return problem
     else:
@@ -862,6 +920,42 @@ def build_vast_scene(T, scene):
                                 shape=T.Circle(0.4)))
     return T.SchedulerProblem(vehicle, env, frame_type="corridor",
                               n_frames=2, n_cells=[10, 10])
+
+
+def build_gcode_scene(T, scene):
+    """One of phase 18's scenes, as the examples of the same names build
+    them: ``gcode_slot_multi`` and ``gcode_rsq5``
+    (examples/GCode_examples/gcodeproblem_slot_multi.py and
+    gcodeproblem_rsq5.py: a Tool and a GCodeSchedulerProblem over the
+    program's blocks, two segments a window; the .nc files are read where
+    they lie) and ``formation_central``
+    (examples/formation_holonomic_central.py: three Holonomic vehicles in
+    one FormationPoint2pointCentral); not initialized."""
+    if scene == "formation_central":
+        n = 3
+        vehicles = [T.Holonomic() for _ in range(n)]
+        fleet = T.Fleet(vehicles)
+        configuration = T.environment.shapes.RegularPolyhedron(
+            0.2, n, np.pi / 4).vertices.T
+        fleet.set_configuration(configuration.tolist())
+        fleet.set_initial_conditions(
+            (np.array([-1.5, -1.5]) + configuration).tolist())
+        fleet.set_terminal_conditions(
+            (np.array([2.0, 2.0]) + configuration).tolist())
+        env = T.Environment(room={"shape": T.Square(5.0)})
+        env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]},
+                                    shape=T.Circle(0.4)))
+        return T.FormationPoint2pointCentral(fleet, env,
+                                             options={"horizon_time": 10})
+    program, tool_args = GCODE_PROGRAMS[scene]
+    reader = T.GCodeReader()
+    reader.load_file(os.path.join(HERE, "examples", "GCode_examples",
+                                  program))
+    blocks = reader.parse()
+    tool = T.Tool(**tool_args)
+    tool.define_knots(knot_intervals=5)
+    tool.set_initial_conditions(blocks[0].start)
+    return T.GCodeSchedulerProblem(tool, blocks, n_segments=2)
 
 
 def scenarios(B, config="p2p_holonomic"):
@@ -965,25 +1059,88 @@ def cache_phase(T, device, consts, setup_s):
     return out
 
 
-def parity_phase(runner, x0, p0, feas_p99):
+class ParityReference:
+    """Phase 8's reference rollout (the port's scipy solver on the bench
+    scene's scenario 0, float64 on the host: minutes) computed by this
+    script in a process of its own (``--parity-reference``), started after
+    setup, so that it runs beside the device phases.  The process stores
+    the record in the host-tensor cache, where ``parity_phase`` reads it;
+    ``result()`` waits for it.  The process is stopped on exit."""
+
+    def __init__(self, runner, x0, p0, workdir):
+        from omg_tools_torch.tools.parity import reference_key
+        from omg_tools_torch.utils import cache
+        self.x0 = x0[0].double().cpu().numpy()
+        self.p0 = p0[0].double().cpu().numpy()
+        # reference_s is the reference's computation, never a cache load
+        check(cache.load_tensors(reference_key(runner, self.x0, self.p0,
+                                               PARITY_STEPS),
+                                 "refroll") is None,
+              "the parity reference is already in the cache")
+        inputs = os.path.join(workdir, "parity_inputs.npz")
+        np.savez(inputs, x0=self.x0, p0=self.p0)
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parity-reference",
+             inputs], cwd=HERE, stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "OMP_NUM_THREADS": "1"})
+
+    def result(self):
+        """(the reference's own seconds, the seconds waited for it)."""
+        t0 = time.time()
+        out, _ = self.proc.communicate(timeout=PARITY_REFERENCE_TIMEOUT_S)
+        check(self.proc.returncode == 0,
+              f"the parity reference's process exited {self.proc.returncode}")
+        return json.loads(out.strip().splitlines()[-1])["reference_s"], \
+            time.time() - t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def parity_reference(inputs):
+    """``--parity-reference INPUTS``: the process of ``ParityReference``.
+    Builds the bench scene's runner on the CPU (its host tensors from the
+    cache the parent filled), computes the reference rollout record of the
+    saved scenario into the cache, and prints its seconds."""
+    sys.path.insert(0, HERE)
+    import torch
+    import omg_tools_torch as T
+    from omg_tools_torch.tools.parity import cached_reference_rollout
+    torch.set_num_threads(1)
+    runner = T.BatchedP2PRunner(
+        build_problem(T), dtype=torch.float32, device="cpu",
+        alm_options=T.ALMOptions(inner_iter=INNER_ITER, rho_init=10.0))
+    data = np.load(inputs)
+    t0 = time.time()
+    cached_reference_rollout(runner, data["x0"], data["p0"], PARITY_STEPS)
+    print(json.dumps({"reference_s": time.time() - t0}), flush=True)
+
+
+def parity_phase(T, device, reference, x0, p0, feas_p99):
     """bench.py's gate (bench.py:404-446) on the main path's float32 fused
-    runner: open-loop control parity of scenario 0 along the reference
-    rollout of the port's scipy solver (float64 on the host), with the
-    bench budgets, through the runner's own structure (K3)."""
+    runner (built again from the cache, its batch equal to the main
+    path's): open-loop control parity of scenario 0 along the reference
+    rollout of the port's scipy solver (float64 on the host, ``reference``),
+    with the bench budgets, through the runner's own structure (K3)."""
     from omg_tools_torch.tools.parity import (cached_reference_rollout,
                                               openloop_parity, reference_key)
     from omg_tools_torch.utils import cache
+    runner, _, _, _, x0_again, p0_again, *_ = setup_phase(T, device)
     check(runner.structure == "compact-arrow-fused",
           f"parity on {runner.structure}")
-    x0n = x0[0].double().cpu().numpy()
-    p0n = p0[0].double().cpu().numpy()
-    # reference_s is the reference's computation, never a cache load
+    check(bool((x0_again == x0).all() and (p0_again == p0).all()),
+          "the rebuilt runner's batch differs from the main path's")
+    x0n, p0n = reference.x0, reference.p0
+    ref_s, wait_s = reference.result()
     check(cache.load_tensors(reference_key(runner, x0n, p0n, PARITY_STEPS),
-                             "refroll") is None,
-          "the parity reference is already in the cache")
-    t0 = time.time()
+                             "refroll") is not None,
+          "the parity reference's process stored no record")
     ref = cached_reference_rollout(runner, x0n, p0n, PARITY_STEPS)
-    ref_s = time.time() - t0
     zero_launch_counts()
     t1 = time.time()
     res = openloop_parity(runner, x0n, p0n, PARITY_STEPS,
@@ -993,7 +1150,8 @@ def parity_phase(runner, x0, p0, feas_p99):
     out = {"steps": PARITY_STEPS, "parity_max_err": res["openloop_max_err"],
            "parity_p90_err": p90, "parity_ref_feas_max": res["ref_feas_max"],
            "per_step": res["per_step"].tolist(), "feas_p99": feas_p99,
-           "reference_s": ref_s, "parity_s": time.time() - t1,
+           "reference_s": ref_s, "reference_wait_s": wait_s,
+           "parity_s": time.time() - t1,
            "launches": launches}
     print("parity " + json.dumps(out), flush=True)
     check(launches["fused_inner"] > 0, "parity: K3 never launched")
@@ -1407,17 +1565,36 @@ class recorded_solves:
         Problem._run_solver = self.orig
 
 
+def _loop_counts(problem):
+    """(frame switches, problem builds, window rolls) so far: a
+    scheduler's frames and cached problems, or a G-code scheduler's window
+    (each roll builds a new window problem)."""
+    if hasattr(problem, "window_start"):
+        return 0, problem.cnt_windows, problem.window_start
+    return (getattr(problem, "cnt_frame_switches", 0),
+            getattr(problem, "cnt_problem_builds", 0), 0)
+
+
+def formation_spread(problem):
+    """The largest spread over the horizon of the fleet centres that the
+    vehicles of a central formation perceive (coefficient-wise, as
+    tests/test_distributed.py:47-53 measures it)."""
+    centers = [problem.get_variables(v, "splines_seg0")
+               + np.asarray(v.rel_pos_c)[None, :] for v in problem.vehicles]
+    return float(np.max(np.ptp(np.stack(centers), axis=0)))
+
+
 def scene_loop(T, device, scene, n_updates=None):
-    """Phase 16 (a) and 17: one example scene's closed loop
+    """Phase 16 (a), 17 and 18: one example scene's closed loop
     (``Problem.solve`` + ``Simulator``) in float64 on the card in the
     default generic mode, ``n_updates`` (SCENE_UPDATES[scene]) updates or
     to its stop criterion, the launch counters zeroed before and read
     after each update (K1 in every one, no K2 or K3); for a scheduler also
-    its frame switches, problem builds and CUDA-graph captures a update: a
-    switch onto a cached local problem must capture nothing, and every
-    solved problem captures its two graphs once.  Then the first solve on
-    a cut budget against the CPU's from the same inputs.  Returns the
-    loop's line."""
+    its frame switches (a G-code scheduler: its window rolls), problem
+    builds and CUDA-graph captures a update: a switch onto a cached local
+    problem must capture nothing, and every solved problem captures its
+    two graphs once.  Then the first solve on a cut budget against the
+    CPU's from the same inputs.  Returns the loop's line."""
     import torch
     from omg_tools_torch import Simulator
     from omg_tools_torch.ops import psd_kernels as pk
@@ -1426,8 +1603,11 @@ def scene_loop(T, device, scene, n_updates=None):
     t0 = time.time()
     problem = build_scene(T, scene, {"device": device})
     vehicle = problem.vehicles[0]
-    # the global goal: a scheduler points poseT at its frames' goals
-    goal = np.asarray(vehicle.poseT, np.float64)[:2]
+    gcode = isinstance(problem, T.GCodeSchedulerProblem)
+    # the global goal: a scheduler points poseT at its frames' goals (a
+    # G-code scheduler at its window's end: its progress is the tool's
+    # path, gated by phase 18)
+    goal = None if gcode else np.asarray(vehicle.poseT, np.float64)[:2]
     problem.init()
     init_s = time.time() - t0
     sched = hasattr(problem, "local_problem")
@@ -1435,19 +1615,18 @@ def scene_loop(T, device, scene, n_updates=None):
     tr = first.transcription
     check(first._structure == "generic",
           f"{scene}: structure {first._structure}")
-    sim = Simulator(problem)
+    sim = Simulator(problem, **(GCODE_SIMULATOR if gcode else {}))
     counts = {"frame_switches": [], "problem_builds": [],
-              "graph_captures": [], "n_x_per_update": [],
-              "k1_variant_per_update": []}
-    wall_ms, solve_ms, k1, iters, feas = [], [], [], [], []
+              "window_rolls": [], "graph_captures": [],
+              "n_x_per_update": [], "k1_variant_per_update": []}
+    wall_ms, solve_ms, k1, iters, feas, spread = [], [], [], [], [], []
+    central = isinstance(problem, T.FormationPoint2pointCentral)
     stopped = False
     switches0 = getattr(problem, "cnt_frame_switches", 0)
     with recorded_solves() as calls:
         for _ in range(n_updates or SCENE_UPDATES[scene]):
             zero_launch_counts()
-            before = (getattr(problem, "cnt_frame_switches", 0),
-                      getattr(problem, "cnt_problem_builds", 0),
-                      CapturedCall.captures)
+            before = (*_loop_counts(problem), CapturedCall.captures)
             t1 = time.perf_counter()
             stopped = sim.update()
             torch.cuda.synchronize()
@@ -1459,11 +1638,12 @@ def scene_loop(T, device, scene, n_updates=None):
             iters.append(problem.solver_stats["iterations"])
             feas.append(problem.solver_stats["feas"])
             solve_ms.append(1e3 * problem.solver_stats["time"])
-            after = (getattr(problem, "cnt_frame_switches", 0),
-                     getattr(problem, "cnt_problem_builds", 0),
-                     CapturedCall.captures)
+            if central:
+                spread.append(formation_spread(problem))
+            after = (*_loop_counts(problem), CapturedCall.captures)
             for key, a, b in zip(("frame_switches", "problem_builds",
-                                  "graph_captures"), before, after):
+                                  "window_rolls", "graph_captures"),
+                                 before, after):
                 counts[key].append(b - a)
             n_x = (problem.local_problem if sched
                    else problem).transcription.n_x
@@ -1473,6 +1653,8 @@ def scene_loop(T, device, scene, n_updates=None):
             if stopped:
                 break
     pose = np.asarray(vehicle.signals["pose"], np.float64)
+    if gcode:
+        goal = np.asarray(vehicle.poseT, np.float64)[:2]
     d_start = float(np.linalg.norm(pose[:2, 0] - goal))
     d_end = float(np.linalg.norm(pose[:2, -1] - goal))
     n_it = sum(int(st.n_iter.sum()) for *_, st in calls)
@@ -1495,11 +1677,23 @@ def scene_loop(T, device, scene, n_updates=None):
             "goal": goal.tolist(), "final_position": pose[:2, -1].tolist(),
             "goal_distance_start": d_start, "goal_distance_end": d_end,
             "dtype": str(x.dtype), "device": str(x.device)}
+    for key in ("n_x_per_update", "k1_variant_per_update"):
+        line[key] = counts.pop(key)
     if sched:
+        switches, builds, _ = _loop_counts(problem)
         line.update(counts, frame_switches_at_init=switches0,
                     problems_solved=len(solved),
-                    frame_switches_total=problem.cnt_frame_switches,
-                    problem_builds_total=problem.cnt_problem_builds)
+                    frame_switches_total=switches,
+                    problem_builds_total=builds)
+    if gcode:
+        state = np.asarray(vehicle.signals["state"], np.float64)
+        line.update(window_start=problem.window_start,
+                    segments=len(problem.segments_all),
+                    path_m=float(np.sum(np.linalg.norm(
+                        np.diff(state, axis=1), axis=0))),
+                    max_abs_y=float(np.max(np.abs(state[1]))))
+    if central:
+        line["center_spread_m"] = spread
     if type(first).__name__ == "FreeTPoint2point":
         line["motion_time_left_s"] = float(
             first.get_variables(first, "T")[0])
@@ -1508,7 +1702,11 @@ def scene_loop(T, device, scene, n_updates=None):
     check(x.is_cuda and x.dtype == torch.float64,
           f"{scene}: solved on {x.device} in {x.dtype}")
     check(bool(np.isfinite(pose).all()), f"{scene}: non-finite poses")
-    check(d_end < d_start, f"{scene}: no progress: {d_start} -> {d_end}")
+    if gcode:
+        check(line["path_m"] > 0.0, f"{scene}: the tool did not move")
+    else:
+        check(d_end < d_start,
+              f"{scene}: no progress: {d_start} -> {d_end}")
     check(d_end < SCENE_GOAL_M or not stopped,
           f"{scene}: stopped {d_end} m from the goal")
     if sched:
@@ -1522,8 +1720,10 @@ def scene_loop(T, device, scene, n_updates=None):
                   f"{scene}: a switch onto a cached problem captured {cap} "
                   "graphs")
 
-    # the first solve on the cut budget: the card against the CPU
-    x0, p, lb, ub = calls[0][1:5]
+    # the first solve on the cut budget: the card against the CPU (a
+    # G-code window may have rolled before it: the problem it solved)
+    solved0, x0, p, lb, ub = calls[0][:5]
+    tr = solved0.transcription
     gen = torch.Generator().manual_seed(0)
     x0 = torch.as_tensor(x0)[None]
     x0 = x0 + SCENE_CHECK_NOISE * torch.randn(x0.shape, generator=gen,
@@ -1533,8 +1733,8 @@ def scene_loop(T, device, scene, n_updates=None):
     def cut_solve(x0_, p_):
         cut = make_alm_solver(
             tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub,
-            ALMOptions(**SCENE_CHECK_BUDGET), row_scale=first._row_scale,
-            obj_scale=first._obj_scale, fg=tr.objective_and_constraints)
+            ALMOptions(**SCENE_CHECK_BUDGET), row_scale=solved0._row_scale,
+            obj_scale=solved0._obj_scale, fg=tr.objective_and_constraints)
         return cut(x0_, p_, lb, ub).x.double().cpu().numpy()
     card = cut_solve(x0.to(device), p.to(device))
     t1 = time.time()
@@ -1576,6 +1776,41 @@ def vast_phase(T, device):
           "global")
     check(sum(s2["frame_switches"]) >= 1,
           "scheduler2 saw no frame switch")
+    return loops
+
+
+def gcode_phase(T, device):
+    """Phase 18: the G-code and central-formation closed loops
+    (``GCODE_LOOPS``, the first GCODE_UPDATES[scene] updates each) and
+    their gates.  Returns the loops' lines."""
+    t0 = time.time()
+    loops = {scene: scene_loop(T, device, scene, GCODE_UPDATES[scene])
+             for scene in GCODE_LOOPS}
+    for scene, loop in loops.items():
+        check(max(loop["feas"]) < GCODE_FEAS_GATE,
+              f"{scene}: an update's feasibility {max(loop['feas'])}")
+    slot = loops["gcode_slot_multi"]
+    check(sum(slot["window_rolls"]) >= 1, "slot_multi's window never rolled")
+    check(set(slot["k1_variant_per_update"]) == {"reg64"},
+          f"slot_multi ran K1's {set(slot['k1_variant_per_update'])}, "
+          "not reg64")
+    check(loops["gcode_rsq5"]["max_abs_y"] < GCODE_TUBE_Y,
+          f"rsq5's tool left its first tube: |y| "
+          f"{loops['gcode_rsq5']['max_abs_y']}")
+    central = loops["formation_central"]
+    check(set(central["k1_variant_per_update"]) == {"global"},
+          f"formation_central ran K1's "
+          f"{set(central['k1_variant_per_update'])}, not global")
+    check(max(central["center_spread_m"]) < FORMATION_SPREAD_M,
+          f"formation_central's centres spread "
+          f"{max(central['center_spread_m'])} m")
+    seconds = time.time() - t0
+    print("gcode_phase " + json.dumps({
+        "seconds": seconds, "budget_s": GCODE_PHASE_BUDGET_S,
+        "updates": {s: loop["updates"] for s, loop in loops.items()}}),
+        flush=True)
+    check(seconds <= GCODE_PHASE_BUDGET_S,
+          f"phase 18 took {seconds} s > {GCODE_PHASE_BUDGET_S} s")
     return loops
 
 
@@ -2358,17 +2593,28 @@ def cross_check_phase(T, runner, st, starts, goals, p0,
 
 
 def main():
+    if sys.argv[1:2] == ["--parity-reference"]:
+        parity_reference(sys.argv[2])
+        return
+    started = time.time()
     # an empty host-tensor cache of the run's own: the first build and the
     # parity reference are computed here, never loaded
     cache_root = tempfile.mkdtemp(prefix="omg_cache_")
     os.environ["OMG_CACHE_DIR"] = cache_root
     try:
-        run(cache_root)
+        with contextlib.ExitStack() as stack:
+            run(cache_root, stack, started)
     finally:
         shutil.rmtree(cache_root, ignore_errors=True)
 
 
-def run(cache_root):
+def print_elapsed(started):
+    """The script's wall time so far (the build included)."""
+    print("elapsed " + json.dumps({"seconds": time.time() - started}),
+          flush=True)
+
+
+def run(cache_root, stack, started):
     sys.path.insert(0, HERE)
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2391,27 +2637,32 @@ def run(cache_root):
     device = torch.device("cuda")
     if "--kernels-only" in sys.argv[1:]:
         kernel_phase(device)
-        global_kernel_phase(device, timed=True)
+        k1_shapes_phase(device, timed=True)
         return
     kernel_phase(device, timed=False)
-    global_kernel_phase(device, timed=False)
+    k1_shapes_phase(device, timed=False)
     for flag, phase in (("--scenes-only", scene_phase),
                         ("--vast-only", lambda T, device, _: vast_phase(
+                            T, device)),
+                        ("--gcode-only", lambda T, device, _: gcode_phase(
                             T, device))):
         if flag in sys.argv[1:]:
             records = loop_records(device, phase(T, device, cache_root))
-            global_kernel_phase(device, timed=True)
+            k1_shapes_phase(device, timed=True)
+            print_elapsed(started)
             print(json.dumps({"kernels": [rec for _, rec in records]}),
                   flush=True)
             return
     runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
         setup_phase(T, device)
     check(not hit, "the first build found its host tensors in the cache")
+    # phase 8's reference, beside everything up to its gate
+    reference = stack.enter_context(ParityReference(runner, x0, p0,
+                                                    cache_root))
     cache_phase(T, device, consts, setup_s)
     k3_entry, k3_timers = k3_kernel_phase(runner, consts, x0, p0)
     st, launches, main_out = main_path_phase(runner, consts, starts, goals,
                                              x0, p0, state, setup_s)
-    parity_phase(runner, x0, p0, main_out["feas_p99"])
     profile_phase(runner, st, p0, state, "compact-arrow-fused")
     launches.update({k: v for k, v in compact_arrow_phase(
         runner, st, p0, state).items() if k != "fused_inner"})
@@ -2429,9 +2680,13 @@ def run(cache_root):
     loops = scene_phase(T, device, cache_root)
     # phase 17: the vast-environment closed loops
     loops.update(vast_phase(T, device))
+    # phase 18: G-code machining and the central formation
+    loops.update(gcode_phase(T, device))
+    # phase 8's gate, its reference computed meanwhile
+    parity_phase(T, device, reference, x0, p0, main_out["feas_p99"])
     # phase 15: device times, after every timed run
     records = kernel_phase(device) + [k3_entry]
-    global_kernel_phase(device, timed=True)
+    k1_shapes_phase(device, timed=True)
     k3_time_phase(k3_entry[1], k3_timers)
     for entry, rec in records:
         rec["launches"] = launches[entry]
@@ -2446,6 +2701,7 @@ def run(cache_root):
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]
+    print_elapsed(started)
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,30 @@
+"""Star outline: many short straight blocks with sharp direction
+reversals; stresses per-segment motion-time guesses and the rolling
+window: the JAX package's
+examples/GCode_examples/gcodeproblem_star.py on omg_tools_torch.  The
+local GCodeProblems run the default generic ALM mode on the card."""
+import os, sys
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                '..', '..'))  # repo-root import
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                '..'))
+from omg_tools_torch import Tool, GCodeReader, GCodeSchedulerProblem, Simulator
+from _smoke import run
+
+# the part programs are the JAX package's, read where they lie
+GCODE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
+                         '..', 'examples', 'GCode_examples')
+
+reader = GCodeReader()
+reader.load_file(os.path.join(GCODE_DIR, "star.nc"))
+blocks = reader.parse()
+tool = Tool(tolerance=0.4)
+tool.define_knots(knot_intervals=5)
+tool.set_initial_conditions(blocks[0].start)
+# many short segments: the rolling window re-targets every block
+problem = GCodeSchedulerProblem(tool, blocks, n_segments=2)
+problem.set_options({"verbose": 0})
+problem.init()
+run(problem, Simulator(problem, sample_time=0.002, update_time=0.02))
+print("gcode star: final", tool.signals["pose"][:3, -1],
+      "blocks:", len(blocks))

@@ -15,8 +15,11 @@ obstacles, the distributed formation (``Fleet``, ``FormationPoint2point``
 and the device loop ``omg_tools_torch.parallel.FleetRunner``), the
 vast-environment planner (``SchedulerProblem``: an ``AStarPlanner`` path,
 moving frames, local ``FreeTPoint2point`` or ``MultiFrameProblem``s) with
-``EnvironmentGUI``'s headless data model, the
-Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins, Bicycle,
+``EnvironmentGUI``'s headless data model and its SVG import
+(``SVGReader``), the centralized formation (``FormationPoint2pointCentral``),
+G-code machining (``GCodeReader`` and the ``GCodeBlock``s, the ``Tool``
+vehicle, ``GCodeProblem`` and the rolling window ``GCodeSchedulerProblem``),
+the Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins, Bicycle,
 AGV, Trailer, Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the
 batched rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and
 p2p_dubins configurations (with per-scenario obstacle states) and the
@@ -47,6 +50,7 @@ from .models.agv import AGV
 from .models.trailer import Trailer
 from .models.quadrotor import Quadrotor
 from .models.quadrotor3d import Quadrotor3D, SimpleQuadrotor3D
+from .models.tool import Tool
 from .problems.problem import Problem
 from .problems.point2point import (Point2point, Point2pointProblem,
                                    FixedTPoint2point, FreeTPoint2point,
@@ -54,11 +58,16 @@ from .problems.point2point import (Point2point, Point2pointProblem,
 from .problems.batch import BatchedP2PRunner
 from .problems.admm import ADMMProblem, DistributedProblem
 from .problems.formation import FormationPoint2point
+from .problems.formation_central import FormationPoint2pointCentral
 from .problems.multiframeproblem import MultiFrameProblem
 from .problems.schedulerproblem import SchedulerProblem
+from .problems.gcodeproblem import GCodeProblem, GCodeSchedulerProblem
 from .problems.globalplanner import AStarPlanner, Grid
 from .environment.frame import Frame, ShiftFrame, CorridorFrame
 from .execution.simulator import Simulator, Deployer
 from .execution.plotlayer import PlotLayer
+from .gui.gcode_reader import GCodeReader
+from .gui.gcode_block import GCodeBlock
+from .gui.svg_reader import SVGReader
 from .gui.gui import EnvironmentGUI
 from .ops.alm import ALMOptions, ALMState

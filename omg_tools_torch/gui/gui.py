@@ -1,14 +1,14 @@
 """Environment editor GUI (a copy of ``omg_tools_tpu.gui.gui``, after
 omgtools' Tkinter editor, gui/gui.py:22-626): click-to-place rectangle and
 circle obstacles with optional velocities and bounce flags, snap-to-grid,
-pixel<->world transforms, pickle save/load of environments, and
+pixel<->world transforms, pickle save/load of environments, SVG import
+(``load_svg``, through ``svg_reader.SVGReader``), and
 ``build_environment()`` producing a real :class:`Environment`.
 
 The data model (obstacle list, transforms, persistence, environment
 construction) is usable headless: the Tk canvas is attached only when a
 display is available (``display=True``), and ``tkinter`` is imported only
-then.  Not ported yet: SVG import (``load_svg``), which waits for
-``gui/svg_reader.py`` (ROADMAP Queue 1 item 7, the G-code slice).
+then.
 """
 
 from __future__ import annotations
@@ -150,10 +150,16 @@ class EnvironmentGUI:
         return description
 
     def load_svg(self, filename, world_width=None):
-        """Import an SVG file as obstacles: not ported yet."""
-        raise NotImplementedError(
-            "EnvironmentGUI.load_svg: omg_tools_torch has no svg_reader yet "
-            "(ROADMAP Queue 1 item 7, the G-code slice)")
+        """Import an SVG file as obstacles (omgtools gui.py:478-565)."""
+        from .svg_reader import SVGReader
+        reader = SVGReader()
+        reader.init(filename)
+        if world_width is not None:
+            reader.set_world_size(world_width,
+                                  world_width * reader.height_px
+                                  / reader.width_px,
+                                  position=self.position)
+        self.apply_description(reader.build_environment())
 
     def apply_description(self, description):
         self.position = list(description.get("position", self.position))

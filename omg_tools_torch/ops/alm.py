@@ -41,6 +41,7 @@ CUDA tensors, their plain versions on CPU tensors.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -140,7 +141,12 @@ class CapturedCall:
     as the graph.  Nothing in ``fn`` may read a value back to the host.
     K1's launches in a replay are counted at the replay
     (``psd_solve.launches``); the capture launches nothing.  Every capture
-    adds one to the class attribute ``captures``."""
+    adds one to the class attribute ``captures``.
+
+    Python's cyclic garbage collector is off during the capture: a dead
+    reference cycle that holds an older graph (a G-code window's problem
+    after its roll, a finished closed loop's) would be freed there, and
+    freeing a graph inside a capture invalidates the capture."""
 
     captures = 0
 
@@ -156,8 +162,14 @@ class CapturedCall:
             torch.cuda.current_stream(device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             before = psd_solve.captured
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn(*self.inputs)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = fn(*self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
         self.k1_launches = psd_solve.captured - before
 
     def __call__(self, *args):

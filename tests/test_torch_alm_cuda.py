@@ -12,12 +12,14 @@ imports no JAX:
     python -m pytest tests/test_torch_alm_cuda.py -m gpu --noconftest -q
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
 from omg_tools_torch.ops import psd_kernels as pk
-from omg_tools_torch.ops.alm import ALMOptions, make_alm_solver
+from omg_tools_torch.ops.alm import ALMOptions, CapturedCall, make_alm_solver
 from omg_tools_torch.ops.solver import BIG
 
 TOL = 1e-9
@@ -97,3 +99,30 @@ def test_cuda_generic_solve_matches_cpu(cuda_device, name, hessian):
     assert launched == want
     np.testing.assert_array_equal(x_again, x_card)
     np.testing.assert_allclose(x_card, x_cpu, rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_capture_runs_without_the_cyclic_collector(cuda_device):
+    """A dead reference cycle that holds a captured graph (an old G-code
+    window's problem) must not be collected inside a later capture: the
+    collector is off while ``CapturedCall`` captures and on again after,
+    and the warm-up runs with it as the caller left it.  The new graph
+    replays right with such cycles waiting for the collector."""
+    x = torch.arange(8.0, device=cuda_device)
+    for _ in range(3):
+        cycle = [CapturedCall(lambda v: (v + 1.0,), (x,))]
+        cycle.append(cycle)
+    del cycle
+    seen = []
+
+    def fn(v):
+        seen.append(gc.isenabled())
+        return (v * 2.0 + 1.0,)
+    assert gc.isenabled()
+    call = CapturedCall(fn, (x,))
+    assert seen == [True, False] and gc.isenabled()
+    out = call(x)[0].clone()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2.0 + 1.0)
+    gc.collect()
+    assert torch.equal(call(x + 1.0)[0], x * 2.0 + 3.0)

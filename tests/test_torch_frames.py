@@ -2,7 +2,8 @@
 package (numpy in both, so equal exactly or to 1e-12): the frames
 (``environment/frame.py``: Frame, ShiftFrame, CorridorFrame,
 create_l_shape), the A* global planner (``problems/globalplanner.py``) and
-the environment editor's headless data model (``gui/gui.py``).
+the environment editor's headless data model (``gui/gui.py``, with its SVG
+import).
 
 Scenes: tests/test_schedulers.py's environments, the schedulers of
 examples/schedulerproblem_example1.py, _example2.py and _dubins.py
@@ -180,8 +181,9 @@ def test_gui_environments_and_astar_match_jax(J, gui_scenes, builder,
 
 
 def test_gui_clicks_and_transforms_match_jax(J):
-    """Clicks placed through the pixel transforms and the snap-to-grid
-    give the same obstacles and clicked positions in both packages."""
+    """Clicks placed through the pixel transforms and the snap-to-grid,
+    then an SVG import, give the same obstacles and clicked positions in
+    both packages."""
     guis = [m.EnvironmentGUI(width=6.0, height=4.0, position=[1.0, -0.5],
                              options={"cell_size": 0.5}, display=False)
             for m in (T, J)]
@@ -197,8 +199,16 @@ def test_gui_clicks_and_transforms_match_jax(J):
         assert guis[0].pixel_to_world(px) == guis[1].pixel_to_world(px)
         w = guis[0].pixel_to_world(px)
         assert guis[0].world_to_pixel(w) == guis[1].world_to_pixel(w)
-    with pytest.raises(NotImplementedError, match="svg_reader"):
-        guis[0].load_svg("maze.svg")
+    # the SVG import: examples/gui_examples/svg/maze_gen.svg, placed at
+    # each editor's room, gives the same obstacles in both packages
+    svg = os.path.join(ROOT, "examples", "gui_examples", "svg",
+                       "maze_gen.svg")
+    for gui in guis:
+        gui.load_svg(svg, world_width=20.0)
+    assert len(guis[0].obstacles) == 2 + 6
+    assert guis[0].obstacles == guis[1].obstacles
+    assert (guis[0].position, guis[0].width, guis[0].height) == \
+        (guis[1].position, guis[1].width, guis[1].height)
 
 
 def test_l_shape_is_one_frame_when_the_goal_is_in_view(J):

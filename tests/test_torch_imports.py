@@ -20,8 +20,9 @@ pytestmark = pytest.mark.fast
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "omg_tools_torch"
 BANNED = ("jax", "jaxlib", "omg_tools_tpu")
-# the port's other programs: the example copies and the card's smoke run
-PROGRAMS = sorted((ROOT / "examples_torch").glob("*.py")) \
+# the port's other programs: the example copies (in subdirectories too)
+# and the card's smoke run
+PROGRAMS = sorted((ROOT / "examples_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 # runs in a fresh interpreter: any import of a banned package raises
@@ -225,6 +226,60 @@ print("OK")
 def test_subprocess_builds_the_vast_scenes_without_jax_or_tkinter():
     banned = BANNED + ("tkinter",)
     out = subprocess.run([sys.executable, "-c", _CHILD_VAST % (banned,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "DISPLAY": ""},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+# G-code machining (the reader, the Tool, the rolling window over each of
+# the nine part programs, phase 18's two G-code scenes built), the SVG
+# import and the central formation, as on the card's machine: JAX and
+# tkinter are not imported
+_CHILD_GCODE = r"""
+import glob, importlib.abc, os, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+from omg_tools_torch.gui import G00, G01, G02, G03
+import chip_smoke
+for path in sorted(glob.glob("examples/GCode_examples/*.nc")):
+    reader = T.GCodeReader()
+    reader.load_file(path)
+    blocks = reader.parse()
+    assert all(isinstance(b, (G00, G01, G02, G03)) for b in blocks)
+    tool = T.Tool(tolerance=0.3)
+    tool.define_knots(knot_intervals=5)
+    tool.set_initial_conditions(blocks[0].start)
+    problem = T.GCodeSchedulerProblem(tool, blocks, n_segments=2)
+    assert len(problem.segments_all) >= len(blocks)
+for scene, n_x in (("gcode_slot_multi", 50), ("gcode_rsq5", 50),
+                   ("formation_central", 203)):
+    problem = chip_smoke.build_scene(T, scene, {"device": "cpu"})
+    problem.init()
+    local = getattr(problem, "local_problem", problem)
+    assert local.transcription.n_x == n_x, (scene, local.transcription.n_x)
+gui = T.EnvironmentGUI(display=False)
+gui.load_svg("examples/gui_examples/svg/maze_gen.svg", world_width=20.0)
+assert len(gui.get_environment().obstacles) == 6
+reader = T.SVGReader()
+reader.init("examples/gui_examples/svg/maze_gen.svg")
+assert reader.build_environment()["obstacles"]
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_builds_gcode_svg_and_central_formation_without_jax():
+    banned = BANNED + ("tkinter",)
+    out = subprocess.run([sys.executable, "-c", _CHILD_GCODE % (banned,)],
                          cwd=ROOT, capture_output=True, text=True,
                          env={**os.environ, "OMP_NUM_THREADS": "1",
                               "DISPLAY": ""},
