@@ -44,10 +44,10 @@ Phases, in order; any failure raises and exits non-zero:
    rounds, 128 rescue lanes x 6 outer rounds, recover_tol 0.01); the launch
    counters are zeroed before and read after: K3 must have run, K1 and K2
    not;
-8. parity (its gate after 18): bench.py's gate (bench.py:404-446) on
+8. parity (its gate after 19): bench.py's gate (bench.py:404-446) on
    that runner, built again from the cache (its batch held equal to the
    main path's): the open-loop control parity of scenario 0 along the
-   reference rollout of the port's scipy solver (``tools/parity.py``, 12
+   reference rollout of the port's scipy solver (``tools/parity.py``, 20
    steps, computed in this run by this script in a process of its own,
    started after 4 and run beside the device phases; its time printed),
    through K3;
@@ -145,22 +145,48 @@ Phases, in order; any failure raises and exits non-zero:
     update feasible to < 1e-3, slot_multi's window rolls at least once,
     rsq5's tool stays in its first tube, the formation's centres agree to
     1e-3 m; the card's first solve against the CPU's; within 150 s;
-15. times (after 18 and 8): the device time of K1 and K2 at every shape of 3
+19. rendezvous, dual decomposition, generic ADMM and the interior-point
+    backend in float64 on the card (``distributed_phase``), at the
+    examples' own settings (fleets, horizons, the templates' full ALM
+    budget): examples/rendezvous_holonomic.py (three Holonomic, rho 1.0:
+    ``initialize``'s 5 dual updates in the first of 12 closed-loop
+    updates), platform_landing.py (two Quadrotors and a Holonomic1D, two
+    vehicle-type groups, 12 updates) and formation_holonomic_dualdec.py
+    (12 updates), the generic ADMM scene of tests/test_distributed.py:238
+    (rigid edge offsets; ``initialize``, 8 dual updates) and
+    examples/p2p_holonomic_solvertest.py's scene with ``solver="ipm"``,
+    and the same scene without its circle (12 closed-loop updates each;
+    an IPM iteration is two CUDA graphs with the eigensolver between
+    them).  Every x-update is recorded (K1 launches
+    and variant, feasibility, iterations, time): each must launch K1 and
+    be feasible (< 1e-3), no K2 or K3; the rendezvous residual must fall
+    below half its first value, the DD residual must not rise over
+    ``initialize``, the generic scene's residual must halve and its
+    offsets hold within 0.1 m; the first x-update of each group and the
+    first IPM solve, on a cut budget, against the CPU's within 4x the
+    CPU's own 1e-15 sensitivity (or 1e-8).  The IPM's KKT error, its
+    failed updates and retries are reported: on the example's scene the
+    method does not converge, in the JAX package either (ROADMAP.md Queue
+    3); without the circle every update's KKT error must be within 100
+    tol (Problem's failure level); within 150 s;
+15. times (after 19 and 8): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
     6 and of each plan of 13, and K1's in float64 at the closed loop's
     shape (1 x 151), at the formation's (4 x 85), at phase 16's, 17's
-    and 18's (1 x n_x) and of K1's global variant and of K1 at the G-code
-    window (1 x 50) at the shapes of 3; taken last, so that no profiler
+    and 18's (1 x n_x), at phase 19's x-updates (B x n_x) and of K1's
+    global variant and of K1 at the G-code window (1 x 50) at the shapes
+    of 3; taken last, so that no profiler
     session but 9's (and 14's trace) precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
 final line); run from the root of another checkout of the port it times
 that tree's kernels with the same yardstick.  ``--scenes-only`` runs
 phases 1-3 (the checks), 16 and its K1 device times, and stops;
-``--vast-only`` the same with phase 17 and ``--gcode-only`` with phase 18
-(each prints its kernels line, no final line).
+``--vast-only`` the same with phase 17, ``--gcode-only`` with phase 18
+and ``--distributed-only`` with phase 19 (each prints its kernels line,
+no final line).
 
 The line before the ``kernels`` JSON object gives the script's wall time
 (``elapsed``, the build included); the last two lines before the final
@@ -212,10 +238,10 @@ FEAS_P99_GATE = 1e-3      # bench.py:446
 PARITY_GATE_M = 0.02      # bench.py:443
 PARITY_P90_GATE_M = 5e-3  # bench.py:444
 REF_FEAS_GATE = 1e-3      # bench.py:445
-# parity depth: bench.py runs min(N_STEPS, 20) steps; the reference's 20
-# steps took 378 s on the card's host, so the depth is cut to 12
-# (tests/test_parity.py's), which still covers the knot passage at step 10
-PARITY_STEPS = 12
+# parity depth: bench.py's min(N_STEPS, 20) steps (bench.py:413); the
+# reference runs in a one-thread process of its own beside the device
+# phases, where its 12 steps took 14.5 s on the card's host
+PARITY_STEPS = 20
 # the reference (host float64, minutes) runs in a process of its own from
 # phase 4 on, beside the device phases; the gate waits at most this long
 PARITY_REFERENCE_TIMEOUT_S = 900
@@ -304,6 +330,41 @@ GCODE_FEAS_GATE = 1e-3
 GCODE_TUBE_Y = 0.4
 FORMATION_SPREAD_M = 1e-3
 GCODE_PHASE_BUDGET_S = 150.0
+# phase 19: the distributed layer's host-consensus problems and the
+# interior-point backend in float64 on the card, at the examples' own
+# settings (their fleets and horizons, the templates' full ALM budget of
+# 20 outer x 16 inner iterations, the IPM's 60 iterations a solve):
+# examples/rendezvous_holonomic.py (initialize's 5 dual updates inside
+# the first of DIST_UPDATES closed-loop updates), platform_landing.py
+# (two vehicle-type groups) and formation_holonomic_dualdec.py, the
+# generic ADMM scene of tests/test_distributed.py:238 (initialize only, 8
+# dual updates) and examples/p2p_holonomic_solvertest.py's scene with
+# solver="ipm" (IPM_UPDATES closed-loop updates), where the method does not
+# converge (in the JAX package either: its KKT error is reported, not
+# gated), and the same scene without its circle, where it converges (every
+# update's KKT error within 100 tol, Problem's failure level, is gated;
+# the CPU's 12 updates: at most 7.7e-4).  The gates: every
+# x-update feasible (DIST_FEAS_GATE, Problem's failure level) with K1 in
+# every one; the rendezvous residual below half its first value
+# (tests/test_distributed.py:90-92), the DD residual not increasing over
+# initialize's updates (within 1e-9), the generic scene's residual halved
+# and its offsets within GENERIC_OFFSET_GATE_M (tests/test_distributed.py:
+# 276-285); the card's first x-update of each group and its first IPM
+# solve against the CPU's from the same inputs on a cut budget, within
+# SCENE_SPREAD_FACTOR x the CPU's own move under a 1e-15 perturbation of
+# its start (or SCENE_FLOOR)
+DIST_LOOPS = ("rendezvous_holonomic", "platform_landing",
+              "formation_holonomic_dualdec", "generic_admm")
+DIST_UPDATES = 12
+DIST_INITIALIZE_ONLY = ("generic_admm",)
+DIST_FEAS_GATE = 1e-3
+GENERIC_OFFSET_GATE_M = 0.1
+IPM_SCENE = "p2p_holonomic_solvertest"
+IPM_SCENES = (IPM_SCENE, IPM_SCENE + "_rectangle")
+IPM_CONVERGING = (IPM_SCENE + "_rectangle",)
+IPM_UPDATES = 12
+IPM_CHECK_BUDGET = 8      # IPM iterations of the card-vs-CPU check
+DIST_PHASE_BUDGET_S = 150.0
 # the batched runs with moving obstacles: bench.py's p2p_holonomic with
 # its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
@@ -360,6 +421,8 @@ K1_REG_SHAPES = (("gcode_window", (1, 50, "float64"), "reg64"),)
 # K1 at the formation's x-update: the generic mode's Newton system of the
 # four vehicles' template (n_x = 85), one system a lane
 K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
+# K1 float64 at phase 19's x-updates (B vehicles of a group, n_x rows)
+K1_DIST_NAME = "K1 chol_solve r=1 (psd_solve) float64, x-update"
 K1_FLEET_SHAPE = (4, 85, 1)
 
 # bench.py's other single-vehicle configurations (bench.py:233-345) at
@@ -1542,7 +1605,7 @@ def formation_phase(T, device):
 
 
 class recorded_solves:
-    """Within the block, every ALM solve of every problem
+    """Within the block, every solve (ALM or IPM) of every problem
     (``Problem._run_solver``) as (problem, x0, p, lb, ub, state): the
     scheduler's local problems are built and swapped inside the loop."""
 
@@ -1551,9 +1614,9 @@ class recorded_solves:
         self.orig, self.calls = Problem._run_solver, []
         orig, calls = self.orig, self.calls
 
-        def run(problem, parameters, lb, ub, state=None):
+        def run(problem, parameters, lb, ub, state=None, **kw):
             x0 = np.array(problem._x_result, np.float64)
-            st = orig(problem, parameters, lb, ub, state)
+            st = orig(problem, parameters, lb, ub, state, **kw)
             calls.append((problem, x0, np.array(parameters, np.float64),
                           lb, ub, st))
             return st
@@ -1724,11 +1787,6 @@ def scene_loop(T, device, scene, n_updates=None):
     # G-code window may have rolled before it: the problem it solved)
     solved0, x0, p, lb, ub = calls[0][:5]
     tr = solved0.transcription
-    gen = torch.Generator().manual_seed(0)
-    x0 = torch.as_tensor(x0)[None]
-    x0 = x0 + SCENE_CHECK_NOISE * torch.randn(x0.shape, generator=gen,
-                                              dtype=x0.dtype)
-    p = torch.as_tensor(p)[None]
 
     def cut_solve(x0_, p_):
         cut = make_alm_solver(
@@ -1736,21 +1794,8 @@ def scene_loop(T, device, scene, n_updates=None):
             ALMOptions(**SCENE_CHECK_BUDGET), row_scale=solved0._row_scale,
             obj_scale=solved0._obj_scale, fg=tr.objective_and_constraints)
         return cut(x0_, p_, lb, ub).x.double().cpu().numpy()
-    card = cut_solve(x0.to(device), p.to(device))
-    t1 = time.time()
-    cpu = cut_solve(x0, p)
-    cpu_s = time.time() - t1
-    noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
-    moved = cut_solve(x0 * (1 + F64_PERTURB * noise), p)
-    err = float(np.abs(card - cpu).max())
-    sens = float(np.abs(moved - cpu).max())
-    tol = max(SCENE_SPREAD_FACTOR * sens, SCENE_FLOOR)
-    check_line = {"scene": scene, "budget": SCENE_CHECK_BUDGET,
-                  "card_vs_cpu_max_abs_x": err,
-                  "cpu_sensitivity_1e-15": sens, "tol": tol,
-                  "cpu_s": cpu_s}
-    print("scene_check " + json.dumps(check_line), flush=True)
-    check(err <= tol, f"{scene}: card vs CPU first solve {err} > {tol}")
+    card_vs_cpu("scene_check", cut_solve, x0[None], p[None], device,
+                scene=scene, budget=SCENE_CHECK_BUDGET)
     return line
 
 
@@ -1822,6 +1867,384 @@ def loop_records(device, loops):
         loop["k1_launches_per_update"], name=f"{K1_F64_NAME}, {scene}",
         shape=(1, loop["n_x"], 1), tag=scene))
         for scene, loop in loops.items()]
+
+
+def build_distributed_scene(T, scene, options=None):
+    """One of phase 19's scenes in the package ``T``, as the examples of
+    the same names (and tests/test_distributed.py:238 for
+    ``generic_admm``) build it; not initialized."""
+    from omg_tools_torch.environment.shapes import RegularPolyhedron
+    options = dict(options or {})
+    if scene in IPM_SCENES:
+        vehicle = T.Holonomic(options={"safety_distance": 0.1})
+        vehicle.set_initial_conditions([-1.5, -1.5])
+        vehicle.set_terminal_conditions([2.0, 2.0])
+        env = T.Environment(room={"shape": T.Square(5.0)})
+        env.add_obstacle(T.Obstacle({"position": [1.7, -0.5]},
+                                    shape=T.Rectangle(width=3.0,
+                                                      height=0.2)))
+        if scene == IPM_SCENE:
+            env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]},
+                                        shape=T.Circle(0.4)))
+        return T.Point2point(vehicle, env, {"verbose": 0, "solver": "ipm",
+                                            **options}, freeT=False)
+    if scene == "platform_landing":
+        quadrotors = [T.Quadrotor(0.2) for _ in range(2)]
+        fleet = T.Fleet(quadrotors + [T.Holonomic1D()])
+        fleet.set_configuration([[0.25], [-0.25], [0.0]])
+        fleet.set_initial_conditions([[1.5, 3.0], [-2.0, 2.0], [1.0]])
+        fleet.set_terminal_conditions([[0.0, 0.1], [0.0, 0.1], [0.0]])
+        env = T.Environment(room={"shape": T.Square(5.0),
+                                  "position": [0., 2.]})
+        env.add_obstacle(T.Obstacle({"position": [1.0, 1.5]},
+                                    shape=T.Rectangle(width=1.0,
+                                                      height=0.2)))
+        problem = T.RendezVous(fleet, env, options={
+            "horizon_time": 5.0, "rho": 3.0, **options})
+        problem.set_options({"verbose": 0})
+        return problem
+    N = 3
+    vehicles = [T.Holonomic() for _ in range(N)]
+    fleet = T.Fleet(vehicles)
+    configuration = RegularPolyhedron(0.2, N, np.pi / 4).vertices.T
+    fleet.set_configuration(configuration.tolist())
+    env = T.Environment(room={"shape": T.Square(5.0)})
+    if scene == "rendezvous_holonomic":
+        fleet.set_initial_conditions(
+            [[-2.0, -2.0], [2.0, -1.5], [-1.0, 2.0]])
+        for veh in vehicles:
+            veh.set_terminal_conditions([0.0, 0.0])
+        problem = T.RendezVous(fleet, env, options={
+            "horizon_time": 10, "rho": 1.0, **options})
+    else:
+        fleet.set_initial_conditions(
+            (np.array([-1.5, -1.5]) + configuration).tolist())
+        fleet.set_terminal_conditions(
+            (np.array([2.0, 2.0]) + configuration).tolist())
+    if scene == "formation_holonomic_dualdec":
+        problem = T.FormationPoint2pointDualDecomposition(
+            fleet, env, options={"horizon_time": 10, **options})
+    elif scene == "generic_admm":
+        rel = {v: np.asarray(sorted(fleet.configuration[v].items()))[:, 1]
+               for v in vehicles}
+
+        def shared_fn(problem, vehicle, splines):
+            return [splines[0], splines[1]]
+
+        def edge_constraint(problem, veh_i, veh_j):
+            n = problem.n_sh // 2
+            eye = np.eye(2 * n)
+            r = rel[veh_i] - rel[veh_j]            # z_i - z_j = r_ij
+            return (np.concatenate([eye, -eye], axis=1),
+                    np.concatenate([np.full(n, r[0]), np.full(n, r[1])]))
+        problem = T.GenericADMMProblem(
+            fleet, env, shared_fn=shared_fn, edge_constraint=edge_constraint,
+            options={"horizon_time": 10, "rho": 1.0, "init_iter": 8,
+                     **options})
+        problem.rel = rel
+    problem.set_options({"verbose": 0})
+    return problem
+
+
+class recorded_x_updates:
+    """Within the block, every x-update of an ADMM-engine ``problem``
+    (``ADMMProblem._x_update``: one batched ALM solve of a vehicle-type
+    group): its group, batch, n_x, K1 launches and variant, the result's
+    feasibility and iterations and its wall time; the inputs of each
+    group's first (cold) x-update are kept for the CPU check."""
+
+    def __init__(self, problem):
+        self.problem = problem
+
+    def __enter__(self):
+        import torch
+        from omg_tools_torch.ops import psd_kernels as pk
+        problem, calls, first = self.problem, [], {}
+        orig = problem._x_update
+        self.calls, self.first = calls, first
+
+        def run(group, current_time):
+            g = problem.groups.index(group)
+            n_x = group.template.transcription.n_x
+            if g not in first:
+                first[g] = (np.array(group.X), problem._pack_params(
+                    group, current_time))
+            torch.cuda.synchronize()
+            k1, t0 = pk.psd_solve.launches, time.perf_counter()
+            orig(group, current_time)
+            torch.cuda.synchronize()
+            st = group.alm_state
+            calls.append({
+                "group": g, "B": len(group.indices), "n_x": n_x,
+                "k1": pk.psd_solve.launches - k1,
+                "variant": pk.variant(n_x, 1, st.x.dtype),
+                "feas": float(st.feas.max()),
+                "iterations": int(st.n_iter.max()),
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "device": str(st.x.device), "dtype": str(st.x.dtype)})
+        problem._x_update = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.problem._x_update
+
+
+def card_vs_cpu(tag, solve, x0, p, device, noise=SCENE_CHECK_NOISE,
+                **fields):
+    """``solve(x0, p)`` (a cut-budget solve on a batch, returning x as
+    float64 numpy) on the card against the CPU from x0 plus a seeded
+    ``noise``, beside the CPU's own move under a 1e-15 relative
+    perturbation of that start: the card must land within
+    SCENE_SPREAD_FACTOR x that move, or SCENE_FLOOR.  Prints the line,
+    ``fields`` first, after ``tag``, and returns it."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.as_tensor(x0, dtype=torch.float64)
+    p = torch.as_tensor(p, dtype=torch.float64)
+    x0 = x0 + noise * torch.randn(x0.shape, generator=gen, dtype=x0.dtype)
+    card = solve(x0.to(device), p.to(device))
+    t1 = time.time()
+    cpu = solve(x0, p)
+    cpu_s = time.time() - t1
+    moved = solve(x0 * (1 + F64_PERTURB * torch.randn(
+        x0.shape, generator=gen, dtype=x0.dtype)), p)
+    err = float(np.abs(card - cpu).max())
+    sens = float(np.abs(moved - cpu).max())
+    tol = max(SCENE_SPREAD_FACTOR * sens, SCENE_FLOOR)
+    line = {**fields, "card_vs_cpu_max_abs_x": err,
+            "cpu_sensitivity_1e-15": sens, "tol": tol, "noise": noise,
+            "cpu_s": cpu_s}
+    print(f"{tag} " + json.dumps(line), flush=True)
+    check(bool(np.isfinite(card).all()), f"{fields}: non-finite card solve")
+    check(err <= tol, f"{fields}: card vs CPU first solve {err} > {tol}")
+    return line
+
+
+def dist_loop(T, device, scene):
+    """Phase 19 (a): one ADMM-engine scene's loop in float64 on the card:
+    ``initialize`` alone (DIST_INITIALIZE_ONLY) or DIST_UPDATES
+    closed-loop updates (``Simulator``: the first runs ``initialize``),
+    every x-update recorded; then each group's first x-update on a cut
+    budget against the CPU's.  Returns the loop's line."""
+    import torch
+    from omg_tools_torch import Simulator
+    from omg_tools_torch.ops.alm import ALMOptions, make_alm_solver
+    t0 = time.time()
+    problem = build_distributed_scene(T, scene, {"device": device})
+    problem.init()
+    init_s = time.time() - t0
+    wall_ms, dual_per_update = [], []
+    zero_launch_counts()
+    with recorded_x_updates(problem) as rec:
+        if scene in DIST_INITIALIZE_ONLY:
+            t1 = time.perf_counter()
+            problem.initialize(0.0)
+            torch.cuda.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t1))
+            dual_per_update.append(len(problem.residuals))
+        else:
+            sim = Simulator(problem)
+            for _ in range(DIST_UPDATES):
+                n_res = len(problem.residuals)
+                t1 = time.perf_counter()
+                sim.update()
+                torch.cuda.synchronize()
+                wall_ms.append(1e3 * (time.perf_counter() - t1))
+                dual_per_update.append(len(problem.residuals) - n_res)
+    c = launch_counts()
+    calls = rec.calls
+    res = np.asarray(problem.residuals, np.float64)
+    groups = []
+    for g, group in enumerate(problem.groups):
+        mine = [call for call in calls if call["group"] == g]
+        groups.append({
+            "vehicles": type(group.template.vehicles[0]).__name__,
+            "B": len(group.indices), "n_x": mine[0]["n_x"],
+            "variant": mine[0]["variant"],
+            "x_updates": len(mine),
+            "k1_launches": sum(m["k1"] for m in mine),
+            "k1_launches_per_x_update": [m["k1"] for m in mine],
+            "x_update_ms_p50": float(np.median([m["ms"] for m in mine])),
+            "x_update_ms_max": float(np.max([m["ms"] for m in mine])),
+            "iterations": [m["iterations"] for m in mine],
+            "ms_per_iteration": sum(m["ms"] for m in mine)
+            / max(sum(m["iterations"] for m in mine), 1),
+            "feas_max": max(m["feas"] for m in mine)})
+    line = {"scene": scene, "problem": type(problem).__name__,
+            "N": problem.N, "n_sh": problem.n_sh, "init_s": init_s,
+            "updates": len(wall_ms), "dual_updates": len(res),
+            "dual_updates_per_update": dual_per_update,
+            "update_wall_ms_p50": float(np.median(wall_ms)),
+            "update_wall_ms_max": float(np.max(wall_ms)),
+            "update_wall_ms": wall_ms,
+            "primal_residuals": res[:, 0].tolist(), "groups": groups,
+            "x_update_device": sorted({m["device"] for m in calls}),
+            "x_update_dtype": sorted({m["dtype"] for m in calls}),
+            "launches": c}
+    if scene == "generic_admm":
+        S = np.stack([problem._s_of_vehicle(i) for i in range(problem.N)])
+        n = problem.n_sh // 2
+        off = 0.0
+        for e in range(problem.n_edges):
+            i, j = e, (e + 1) % problem.N
+            r = problem.rel[problem.vehicles[i]] \
+                - problem.rel[problem.vehicles[j]]
+            off = max(off, float(np.max(np.abs(np.r_[
+                S[i][:n] - S[j][:n] - r[0], S[i][n:] - S[j][n:] - r[1]]))))
+        line["max_offset_error_m"] = off
+    print("dist_loop " + json.dumps(line), flush=True)
+    check(all(m["device"].startswith("cuda") and m["dtype"] ==
+              "torch.float64" for m in calls),
+          f"{scene}: x-updates ran on {line['x_update_device']} in "
+          f"{line['x_update_dtype']}")
+    check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
+          f"{scene}: the loop launched {c}")
+    check(all(m["k1"] > 0 for m in calls),
+          f"{scene}: an x-update launched no K1")
+    check(max(m["feas"] for m in calls) <= DIST_FEAS_GATE,
+          f"{scene}: an x-update's feasibility "
+          f"{max(m['feas'] for m in calls)} > {DIST_FEAS_GATE}")
+    check(bool(np.isfinite(res[:, 0]).all()), f"{scene}: non-finite residual")
+    if scene == "formation_holonomic_dualdec":
+        k = problem.init_iter
+        check(res[k - 1, 0] <= res[0, 0] + 1e-9,
+              f"{scene}: the DD residual rose over initialize: "
+              f"{res[:k, 0].tolist()}")
+    else:
+        check(res[-1, 0] < 0.5 * res[0, 0],
+              f"{scene}: the residual did not halve: {res[0, 0]} -> "
+              f"{res[-1, 0]}")
+    if scene == "generic_admm":
+        check(line["max_offset_error_m"] < GENERIC_OFFSET_GATE_M,
+              f"{scene}: offsets held to {line['max_offset_error_m']} m")
+
+    # each group's first (cold) x-update on the cut budget: card vs CPU
+    line["checks"] = []
+    for g, (X0, P) in sorted(rec.first.items()):
+        tmpl = problem.groups[g].template
+        tr = tmpl.transcription
+        lb, ub = problem.groups[g].lb, problem.groups[g].ub
+
+        def cut_solve(x0, p):
+            cut = make_alm_solver(
+                tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub,
+                ALMOptions(**SCENE_CHECK_BUDGET),
+                row_scale=tmpl._row_scale, obj_scale=tmpl._obj_scale,
+                fg=tr.objective_and_constraints)
+            return cut(x0, p, lb, ub).x.double().cpu().numpy()
+        line["checks"].append(card_vs_cpu(
+            "dist_check", cut_solve, X0, P, device, scene=scene, group=g))
+    return line
+
+
+def ipm_loop(T, device, scene=IPM_SCENE):
+    """Phase 19 (b): examples/p2p_holonomic_solvertest.py's scene (or the
+    same without its circle) with the interior-point backend, IPM_UPDATES
+    closed-loop updates in float64 on the card (every solve recorded: its
+    KKT error, iterations and whether it failed and retried; on a scene of
+    IPM_CONVERGING none may fail), then the first solve on a cut budget
+    (IPM_CHECK_BUDGET iterations) against the CPU's.  Returns the loop's
+    line."""
+    import torch
+    from omg_tools_torch import Simulator
+    from omg_tools_torch.ops.solver import IPOptions, make_ip_solver
+    t0 = time.time()
+    problem = build_distributed_scene(T, scene, {"device": device})
+    problem.init()
+    init_s = time.time() - t0
+    vehicle = problem.vehicles[0]
+    goal = np.asarray(vehicle.poseT, np.float64)[:2]
+    tol = problem.options["solver_options"]["tol"]
+    sim = Simulator(problem)
+    wall_ms, kkt, iters, solver_calls = [], [], [], []
+    zero_launch_counts()
+    with recorded_solves() as calls:
+        for _ in range(IPM_UPDATES):
+            n_calls = len(calls)
+            t1 = time.perf_counter()
+            sim.update()
+            torch.cuda.synchronize()
+            wall_ms.append(1e3 * (time.perf_counter() - t1))
+            kkt.append(problem.solver_stats["kkt_err"])
+            iters.append(problem.solver_stats["iterations"])
+            solver_calls.append(len(calls) - n_calls)
+    c = launch_counts()
+    pose = np.asarray(vehicle.signals["pose"], np.float64)
+    n_it = sum(int(st.n_iter.sum()) for *_, st in calls)
+    x = calls[-1][-1].x
+    line = {"scene": scene, "solver": "ipm",
+            "n_x": problem.transcription.n_x,
+            "n_g": problem.transcription.n_g, "init_s": init_s,
+            "updates": len(wall_ms), "kkt_err": kkt, "iterations": iters,
+            "solver_calls_per_update": solver_calls,
+            "failed_updates": sum(k > 100 * tol for k in kkt),
+            "kkt_gate": 100 * tol,
+            "update_wall_ms_p50": float(np.median(wall_ms)),
+            "update_wall_ms_max": float(np.max(wall_ms)),
+            "ms_per_iteration": sum(wall_ms) / max(n_it, 1),
+            "goal_distance_start": float(np.linalg.norm(pose[:2, 0] - goal)),
+            "goal_distance_end": float(np.linalg.norm(pose[:2, -1] - goal)),
+            "launches": c, "dtype": str(x.dtype), "device": str(x.device)}
+    print("ipm_loop " + json.dumps(line), flush=True)
+    check(x.is_cuda and x.dtype == torch.float64,
+          f"ipm: solved on {x.device} in {x.dtype}")
+    check(all(bool(torch.isfinite(st.x).all()) for *_, st in calls),
+          "ipm: a non-finite iterate")
+    check(bool(np.isfinite(pose).all()), "ipm: non-finite poses")
+    check(c["psd_solve_multi"] == 0 and c["fused_inner"] == 0,
+          f"ipm: the loop launched {c}")
+    if scene in IPM_CONVERGING:
+        check(line["failed_updates"] == 0,
+              f"{scene}: KKT errors {kkt} above {100 * tol}")
+
+    # the first solve on the cut budget: the card against the CPU
+    solved0, x0, p, lb, ub = calls[0][:5]
+    tr = solved0.transcription
+
+    def cut_solve(x0_, p_):
+        cut = make_ip_solver(
+            tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub,
+            IPOptions(max_iter=IPM_CHECK_BUDGET, tol=tol),
+            row_scale=solved0._row_scale, obj_scale=solved0._obj_scale,
+            fg=tr.objective_and_constraints)
+        return cut(x0_, p_, lb, ub).x.double().cpu().numpy()
+    line["check"] = card_vs_cpu("dist_check", cut_solve, x0[None], p[None],
+                                device, noise=0.0, scene=scene)
+    return line
+
+
+def distributed_phase(T, device):
+    """Phase 19: the ADMM-engine loops (``DIST_LOOPS``) and the IPM loop,
+    and their gates, within DIST_PHASE_BUDGET_S.  Returns the lines."""
+    t0 = time.time()
+    loops = {scene: dist_loop(T, device, scene) for scene in DIST_LOOPS}
+    for scene in IPM_SCENES:
+        loops[scene] = ipm_loop(T, device, scene)
+    seconds = time.time() - t0
+    print("distributed_phase " + json.dumps({
+        "seconds": seconds, "budget_s": DIST_PHASE_BUDGET_S,
+        "updates": {s: loop["updates"] for s, loop in loops.items()}}),
+        flush=True)
+    check(seconds <= DIST_PHASE_BUDGET_S,
+          f"phase 19 took {seconds} s > {DIST_PHASE_BUDGET_S} s")
+    return loops
+
+
+def dist_records(device, loops):
+    """The kernels-line records of K1 float64 at each x-update shape of
+    phase 19 (B systems of n_x rows), with the launches of its loop
+    (phase 15)."""
+    records = []
+    for scene, loop in loops.items():
+        for g, group in enumerate(loop.get("groups", ())):
+            rec = k1_f64_record(
+                device, group["k1_launches"],
+                group["k1_launches_per_x_update"],
+                name=f"{K1_DIST_NAME}, {scene} ({group['vehicles']})",
+                shape=(group["B"], group["n_x"], 1), tag=f"{scene}_{g}")
+            rec["launches_per_x_update"] = rec.pop("launches_per_update")
+            records.append(("psd_solve", rec))
+    return records
 
 
 def moving_obstacle_states(B, seed=0):
@@ -2645,9 +3068,12 @@ def run(cache_root, stack, started):
                         ("--vast-only", lambda T, device, _: vast_phase(
                             T, device)),
                         ("--gcode-only", lambda T, device, _: gcode_phase(
-                            T, device))):
+                            T, device)),
+                        ("--distributed-only", None)):
         if flag in sys.argv[1:]:
-            records = loop_records(device, phase(T, device, cache_root))
+            records = dist_records(device, distributed_phase(T, device)) \
+                if phase is None else \
+                loop_records(device, phase(T, device, cache_root))
             k1_shapes_phase(device, timed=True)
             print_elapsed(started)
             print(json.dumps({"kernels": [rec for _, rec in records]}),
@@ -2682,6 +3108,8 @@ def run(cache_root, stack, started):
     loops.update(vast_phase(T, device))
     # phase 18: G-code machining and the central formation
     loops.update(gcode_phase(T, device))
+    # phase 19: rendezvous, dual decomposition, generic ADMM and the IPM
+    dist = distributed_phase(T, device)
     # phase 8's gate, its reference computed meanwhile
     parity_phase(T, device, reference, x0, p0, main_out["feas_p99"])
     # phase 15: device times, after every timed run
@@ -2698,6 +3126,7 @@ def run(cache_root, stack, started):
         device, k1_fleet_f64, None, name=K1_FLEET_NAME + " float64",
         shape=K1_FLEET_SHAPE, tag="formation")))
     records += loop_records(device, loops)
+    records += dist_records(device, dist)
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]

@@ -11,8 +11,12 @@ package.  Its entry points run on CUDA unless the caller passes
 the Quick Start closed loop (``Point2point``, ``Simulator``, ``Deployer``)
 with fixed or free motion time (``FreeTPoint2point``) and free end
 points (``FreeEndPoint2point``), moving, rotating and spline-trajectory
-obstacles, the distributed formation (``Fleet``, ``FormationPoint2point``
-and the device loop ``omg_tools_torch.parallel.FleetRunner``), the
+obstacles, the distributed layer on one card (``Fleet``, the ADMM
+formation ``FormationPoint2point`` and its device loop
+``omg_tools_torch.parallel.FleetRunner``, the rendezvous ``RendezVous``,
+dual decomposition ``DDProblem`` and
+``FormationPoint2pointDualDecomposition``, and ``GenericADMMProblem``
+over a user-defined shared quantity), the
 vast-environment planner (``SchedulerProblem``: an ``AStarPlanner`` path,
 moving frames, local ``FreeTPoint2point`` or ``MultiFrameProblem``s) with
 ``EnvironmentGUI``'s headless data model and its SVG import
@@ -22,8 +26,10 @@ vehicle, ``GCodeProblem`` and the rolling window ``GCodeSchedulerProblem``),
 the Holonomic, Holonomic1D, Holonomic3D, HolonomicOrient, Dubins, Bicycle,
 AGV, Trailer, Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the
 batched rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and
-p2p_dubins configurations (with per-scenario obstacle states) and the
-scipy reference solver; ``ROADMAP.md`` lists what is still to port.
+p2p_dubins configurations (with per-scenario obstacle states), and the
+solver backends: the ALM, the interior-point method (``solver="ipm"``,
+``make_ip_solver``) and the scipy reference; ``ROADMAP.md`` lists what is
+still to port.
 """
 
 __version__ = "0.1.0"
@@ -59,6 +65,10 @@ from .problems.batch import BatchedP2PRunner
 from .problems.admm import ADMMProblem, DistributedProblem
 from .problems.formation import FormationPoint2point
 from .problems.formation_central import FormationPoint2pointCentral
+from .problems.rendezvous import RendezVous
+from .problems.dualdecomposition import (DDProblem,
+                                         FormationPoint2pointDualDecomposition)
+from .problems.generic_admm import GenericADMMProblem
 from .problems.multiframeproblem import MultiFrameProblem
 from .problems.schedulerproblem import SchedulerProblem
 from .problems.gcodeproblem import GCodeProblem, GCodeSchedulerProblem
@@ -71,3 +81,4 @@ from .gui.gcode_block import GCodeBlock
 from .gui.svg_reader import SVGReader
 from .gui.gui import EnvironmentGUI
 from .ops.alm import ALMOptions, ALMState
+from .ops.solver import IPOptions, IPState, make_ip_solver

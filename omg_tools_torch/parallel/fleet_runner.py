@@ -23,7 +23,7 @@ separate_per_build, distributedproblem.py:88-103) run one batched solve a
 group and scatter into the fleet-wide shared matrix.
 
 Not ported yet: the mesh paths (``mesh=``, ``mesh_iterate_fn``,
-``mesh_rollout_fn``; ROADMAP.md Queue 1 item 6).
+``mesh_rollout_fn``; ROADMAP.md Queue 1, the mesh path).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from ..problems.rollout_models import make_rollout_model
 __all__ = ["FleetRunner", "FleetCarry"]
 
 _MESH = ("the fleet's mesh paths are not ported to omg_tools_torch yet "
-         "(ROADMAP.md Queue 1 item 6)")
+         "(ROADMAP.md Queue 1, the mesh path)")
 
 
 class FleetCarry(NamedTuple):

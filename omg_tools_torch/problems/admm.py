@@ -102,7 +102,7 @@ class _Group:
     separate_per_build dedup, distributedproblem.py:88-103)."""
 
     __slots__ = ("indices", "template", "S_idx", "x_shift", "lb", "ub",
-                 "X", "alm_state")
+                 "X", "alm_state", "G", "H", "s0")
 
     def __init__(self, indices):
         self.indices = indices

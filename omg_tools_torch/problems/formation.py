@@ -5,7 +5,7 @@ Each vehicle's perceived fleet center (its position splines +
 ``rel_pos_c``) must agree with its neighbors'; the consensus runs through
 the batched ADMM engine of ``problems.admm`` with per-edge shared
 variables and terminal center-derivative stabilization in the
-z-projection.  Not ported yet: ``export`` (ROADMAP.md Queue 1 item 8).
+z-projection.  Not ported yet: ``export`` (ROADMAP.md Queue 1, export).
 """
 
 from __future__ import annotations
@@ -58,4 +58,4 @@ class FormationPoint2point(ADMMProblem):
     def export(self, options=None):
         raise NotImplementedError(
             "the formation's C++ export is not ported to omg_tools_torch "
-            "yet (ROADMAP.md Queue 1 item 8)")
+            "yet (ROADMAP.md Queue 1, export)")

@@ -5,20 +5,23 @@
   one-time host precomputation (Ipopt-style gradient row scaling and the
   objective scale, by ``torch.func`` AD in float64 on the CPU, cached on
   disk by ``utils.cache``) and the solver: the ALM (generic, or dense
-  quadratic under the ``exploit_structure`` option) or the scipy
-  reference (``solver="scipy"``);
+  quadratic under the ``exploit_structure`` option), the interior-point
+  method (``solver="ipm"``, ``ops.solver``) or the scipy reference
+  (``solver="scipy"``);
 - ``solve()``: warm start, parameter packing, one solve on the problem's
-  device, and the failure policy: an infeasible result triggers a fresh
-  guess and one immediate retry, keeping the more feasible iterate;
+  device, and the failure policy: a failed result (the ALM and scipy: an
+  infeasible one; the IPM: a KKT error above 100 tol) triggers a fresh
+  guess and one immediate retry, keeping the better iterate (the more
+  feasible one; the IPM's lower KKT error);
 - ``predict/simulate/sleep`` fan out to the vehicles and the environment.
 
 The problem's options ``device`` (None: CUDA, which must then exist at the
 first solve) and ``dtype`` (float64 by default, as in the JAX package)
-place the ALM's tensors; the scipy reference always runs in float64 on
-the CPU.
+place the ALM's and the IPM's tensors; the scipy reference always runs
+in float64 on the CPU.
 
 A problem over several vehicles (a ``Fleet``) is the distributed
-problems' base (``problems.admm``).  Not ported yet: the ``ipm`` backend.
+problems' base (``problems.admm``).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ class Problem(OptiChild, PlotLayer):
     def set_default_options(self):
         self.options = {
             "verbose": 2,
-            "solver": "alm",  # 'alm' (default) or 'scipy'
+            "solver": "alm",  # 'alm' (default), 'ipm' or 'scipy'
             "solver_options": {"max_iter": 60, "tol": 1e-4},
             "dtype": "float64",
             "device": None,   # None: CUDA
@@ -71,10 +74,6 @@ class Problem(OptiChild, PlotLayer):
     # -- build -------------------------------------------------------------
     def init(self):
         backend = self.options.get("solver", "alm")
-        if backend not in ("alm", "scipy"):
-            raise NotImplementedError(
-                f"solver {backend!r}: omg_tools_torch ports the 'alm' and "
-                "'scipy' backends only so far")
         self.children = (list(self.vehicles) + self.environment.obstacles
                          + [self.environment, self])
         self.father = OptiFather(self.children)
@@ -110,6 +109,15 @@ class Problem(OptiChild, PlotLayer):
                 f, g, tr.n_x, tr.lb, tr.ub, tol=sopts.get("tol", 1e-7),
                 max_iter=sopts.get("max_iter", 300))
             self._structure = "scipy"
+        elif backend == "ipm":
+            from ..ops.solver import IPOptions, make_ip_solver
+            self._solver = make_ip_solver(
+                f, g, tr.n_x, tr.lb, tr.ub,
+                IPOptions(max_iter=sopts.get("max_iter", 60),
+                          tol=sopts.get("tol", 1e-4)),
+                row_scale=row_scale, obj_scale=self._obj_scale,
+                fg=tr.objective_and_constraints)
+            self._structure = "ipm"
         else:
             from ..ops.alm import (make_alm_solver, ALMOptions,
                                    detect_quadratic_structure)
@@ -159,10 +167,12 @@ class Problem(OptiChild, PlotLayer):
         self._ip_state = None
 
     # -- solve -------------------------------------------------------------
-    def _run_solver(self, parameters, lb, ub, state=None):
+    def _run_solver(self, parameters, lb, ub, state=None, reslack=False):
         """One solve from ``self._x_result``: the scipy reference on host
-        float64 arrays (its state holds numpy values), the ALM on a batch of
-        one on the problem's device (its state holds device tensors)."""
+        float64 arrays (its state holds numpy values), the ALM or the IPM
+        on a batch of one on the problem's device (its state holds device
+        tensors).  The IPM warm-starts from ``state`` at x = x_result,
+        with its slacks re-centred under ``reslack``."""
         if self._backend == "scipy":
             return self._solver(self._x_result, parameters, lb, ub,
                                 state0=state)
@@ -172,6 +182,11 @@ class Problem(OptiChild, PlotLayer):
         x0 = torch.as_tensor(self._x_result, dtype=dtype,
                              device=device)[None]
         p = torch.as_tensor(parameters, dtype=dtype, device=device)[None]
+        if self._backend == "ipm":
+            if state is None:
+                return self._solver(x0, p, lb, ub)
+            return self._solver(x0, p, lb, ub, state0=state._replace(x=x0),
+                                reslack=reslack)
         return self._solver(x0, p, lb, ub, state0=state)
 
     def _accept(self, st):
@@ -186,9 +201,27 @@ class Problem(OptiChild, PlotLayer):
         def value(a):
             return float(a.reshape(-1)[0]) if isinstance(a, torch.Tensor) \
                 else float(a)
-        return {"kkt_err": value(st.kkt_err),
-                "iterations": int(value(st.n_iter)),
-                "time": seconds, "feas": value(st.feas)}
+        stats = {"kkt_err": value(st.kkt_err),
+                 "iterations": int(value(st.n_iter)), "time": seconds}
+        if hasattr(st, "feas"):     # the IPM's state carries no feas
+            stats["feas"] = value(st.feas)
+        return stats
+
+    def _failed(self, stats):
+        """A failed solve: an infeasible result (the ALM and the scipy
+        reference: feasibility is the trust anchor), or for the IPM a KKT
+        error above 100 tol."""
+        if "feas" in stats:
+            return stats["feas"] > 1e-3
+        tol = self.options["solver_options"].get("tol", 1e-4)
+        return stats["kkt_err"] > 100 * tol
+
+    @staticmethod
+    def _better(new, old):
+        """The retry's result is kept when it is more feasible (the IPM:
+        has the lower KKT error)."""
+        key = "feas" if "feas" in old else "kkt_err"
+        return new[key] < old[key]
 
     def solve(self, current_time, update_time):
         current_time -= self.start_time  # relative time within the problem
@@ -197,25 +230,26 @@ class Problem(OptiChild, PlotLayer):
         t_sym = self.time_parameter(current_time)
         lb, ub = self.transcription.bounds(t_sym)
         t0 = _time.time()
-        # warm start the primal and dual state from the previous MPC step
-        # (after a basis shift too: the ALM has no slacks to re-center)
-        st = self._run_solver(parameters, lb, ub, self._ip_state)
+        # warm start the primal and dual state from the previous MPC step;
+        # after a basis shift the IPM re-centres its slacks and bound
+        # duals (the ALM has no slacks to re-centre)
+        st = self._run_solver(parameters, lb, ub, self._ip_state,
+                              reslack=self._shifted)
         self._shifted = False
         self._accept(st)
         t_upd = _time.time() - t0
         self.solver_stats = self._stats(st, t_upd)
-        # failure = an infeasible result (feasibility is the trust anchor)
-        if self.solver_stats["feas"] > 1e-3:
+        if self._failed(self.solver_stats):
             if self.options["verbose"] >= 1:
                 print(f"[{self.label}] solve did not converge "
                       f"(kkt_err={self.solver_stats['kkt_err']:.2e}) -- "
                       "resetting guess")
             self.reinitialize()
             # one immediate retry from the fresh guess, never executing the
-            # diverged iterate: keep whichever iterate is more feasible
+            # diverged iterate: keep the better of the two
             st2 = self._run_solver(parameters, lb, ub)
             stats2 = self._stats(st2, _time.time() - t0)
-            if stats2["feas"] < self.solver_stats["feas"]:
+            if self._better(stats2, self.solver_stats):
                 self._accept(st2)
                 self.solver_stats = stats2
         self.update_times.append(t_upd)

@@ -302,12 +302,12 @@ def test_device_accelerate_matches_host():
 
 def test_fleet_needs_cuda_and_has_no_mesh(monkeypatch, formations):
     pt = formations[1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1, the mesh path"):
         FleetRunner(pt, device="cpu", mesh=object())
     runner = FleetRunner(pt, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1, the mesh path"):
         runner.mesh_iterate_fn(2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, export"):
         pt.export()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
