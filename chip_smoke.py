@@ -113,7 +113,8 @@ Phases, in order; any failure raises and exits non-zero:
     every update, no K2 or K3; the update times, iterations, ms an
     iteration, the final position against the goal; the first solve on a
     cut budget against the CPU's, beside the CPU's own sensitivity; the
-    three examples' copies in ``examples_torch/`` in smoke mode.  Then
+    three examples' copies in ``examples_torch/`` in smoke mode (their
+    three processes started together).  Then
     (``obstacle_phase``) the B = 4096, 20-step float32 rollouts at the
     bench settings of bench.py's scene with its circle moving at a
     per-scenario velocity (``make_batch(obstacle_states=)``: K3 must run,
@@ -169,13 +170,40 @@ Phases, in order; any failure raises and exits non-zero:
     method does not converge, in the JAX package either (ROADMAP.md Queue
     3); without the circle every update's KKT error must be within 100
     tol (Problem's failure level); within 150 s;
+20. the batched runner's other structures and the export
+    (``structures_phase``): (a) bench.py's generic branch
+    (bench.py:303-322) on its p2p_dubins scene without the substitution
+    lift (the exact-integral Dubins, n_x 190, n_g 856: no quadratic
+    structure, so the float32 runner takes ``generic``; its setup from
+    the cache that a one-thread process of this script filled,
+    ``StructuresReference``, started after phase 7's timed rollouts,
+    which times the cold setup apart): a
+    B = 1024, 20-step rollout at bench.py's settings for it (inner 8,
+    budgets 4x10/2x8, 256 rescue lanes x 8 outer rounds, recover_tol 0.01
+    raw), its steps timed by CUDA events, the CUDA-graph captures after
+    every step (none after the first step of each budget class and of the
+    rescue), K1 only (the block variant at 1024 x 190), no non-finite
+    lane, progress; 16 lanes' cut-budget cold solve in float32 and
+    float64 on the card against the float64 CPU runner's (the reference
+    process), within 2 cm, beside the CPU's own 1e-15 sensitivity; (b)
+    phase 4's runner rebuilt from the cache and forced onto
+    ``quadratic`` and then ``compact`` (``runner.compact = None``, then
+    ``runner.compact.arrow = None``, a new solver each): CA_STEPS steps
+    from phase 7's cold solve, every lane's planned states within 2 cm of
+    phase 10's at every step, or within 4x the lane's own move in
+    compact-arrow's rollout from a rounding-sized move of that cold solve;
+    K1 (151-row block variant) only, its launches counted by width; (c) ``ExportP2P`` of the
+    bench scene from a float64 runner on the card and on the CPU, the
+    directories byte-identical, and where the machine has g++ and make
+    the harness built and run (``./test .``: PASSED); within 150 s;
 15. times (after 19 and 8): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
     6 and of each plan of 13, and K1's in float64 at the closed loop's
     shape (1 x 151), at the formation's (4 x 85), at phase 16's, 17's
-    and 18's (1 x n_x), at phase 19's x-updates (B x n_x) and of K1's
+    and 18's (1 x n_x), at phase 19's x-updates (B x n_x), in float32
+    at phase 20's (1024 x 190, 256 x 190, 4096 x 151) and of K1's
     global variant and of K1 at the G-code window (1 x 50) at the shapes
     of 3; taken last, so that no profiler
     session but 9's (and 14's trace) precedes the timed runs.
@@ -186,7 +214,9 @@ that tree's kernels with the same yardstick.  ``--scenes-only`` runs
 phases 1-3 (the checks), 16 and its K1 device times, and stops;
 ``--vast-only`` the same with phase 17, ``--gcode-only`` with phase 18
 and ``--distributed-only`` with phase 19 (each prints its kernels line,
-no final line).
+no final line).  ``--structures-only`` runs phases 1-3, 4, 10 (on the
+fused runner's cold solve) and 20, then phase 20's K1 device times, and
+prints its kernels line (no final line).
 
 The line before the ``kernels`` JSON object gives the script's wall time
 (``elapsed``, the build included); the last two lines before the final
@@ -365,6 +395,47 @@ IPM_CONVERGING = (IPM_SCENE + "_rectangle",)
 IPM_UPDATES = 12
 IPM_CHECK_BUDGET = 8      # IPM iterations of the card-vs-CPU check
 DIST_PHASE_BUDGET_S = 150.0
+# phase 20: the batched runner's other structures.  (a) bench.py's
+# generic branch (bench.py:303-322) on bench.py's p2p_dubins scene without
+# its substitution lift (the exact-integral Dubins: no quadratic
+# structure, so the float32 runner takes ``generic``): ALMOptions(
+# inner_iter=8), budgets 4x10 on knot passage and 2x8 otherwise, 2 outer
+# rounds, 256 rescue lanes x 8 outer rounds, recover_tol 0.01 on the raw
+# metric, B = 1024 (bench.py's own cap), 20 steps; 16 lanes' cold solve on
+# a cut budget (4 outer x 8 inner, from make_batch's start plus a seeded
+# 1e-2: that start puts rows on their bounds, where the CPU's own solve
+# moves by centimetres under a 1e-15 move) against the port's float64
+# CPU runner within the 2 cm parity bound (its CPU side in a one-thread
+# process of its own, ``StructuresReference``, started after phase 7's
+# timed rollouts, which also times the cold setup).  (b) the bench
+# scene's runner forced onto ``quadratic`` and then ``compact`` from phase
+# 7's cold solve: CA_STEPS steps each at the bench settings, timed, every
+# lane's planned states within 2 cm of phase 10's compact-arrow states,
+# or within its own spread (DENSE_SPREAD_DRAWS).  (c) ExportP2P of the bench
+# scene from a float64 runner on the card and on the CPU: the directories
+# byte-identical; the harness built and run where the machine has g++ and
+# make.  Within STRUCT_PHASE_BUDGET_S, its setup from the warm cache
+STRUCT_BATCH = 1024
+STRUCT_INNER = 8
+STRUCT_ROLLOUT = dict(outer_iter=2, rescue_lanes=256, rescue_outer=8,
+                      recover_tol=0.01, recover_metric="raw",
+                      budgets=((4, 10), (2, 8)))
+STRUCT_CHECK_LANES = 16
+STRUCT_CHECK_BUDGET = {"outer_iter": 4, "inner_iter": 8}
+STRUCT_CHECK_NOISE = 1e-2
+STRUCT_PHASE_BUDGET_S = 150.0
+STRUCT_REFERENCE_TIMEOUT_S = 900
+DENSE_STRUCTURES = ("quadratic", "compact")
+# (b)'s per-lane rule: a lane whose planned states lie 2 cm or more from
+# compact-arrow's must lie within DENSE_SPREAD_FACTOR x its own move in
+# compact-arrow's rollout under DENSE_SPREAD_DRAWS float32 rounding-sized
+# moves (F32_PERTURB, relative) of the cold solve it starts from: a lane
+# at an active-set decision amplifies rounding (on an NVIDIA H100 such a
+# move took one of compact-arrow's 4,096 lanes 2.8 cm away in 3 steps,
+# while the lanes' p99 moved 0.38 mm)
+DENSE_SPREAD_DRAWS = 2
+DENSE_SPREAD_FACTOR = 4.0
+F32_PERTURB = 1e-6
 # the batched runs with moving obstacles: bench.py's p2p_holonomic with
 # its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
@@ -424,6 +495,14 @@ K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
 # K1 float64 at phase 19's x-updates (B vehicles of a group, n_x rows)
 K1_DIST_NAME = "K1 chol_solve r=1 (psd_solve) float64, x-update"
 K1_FLEET_SHAPE = (4, 85, 1)
+# K1 at phase 20's shapes, float32, the block variant: the generic
+# structure's Newton systems of the exact Dubins (n_x 190) at bench.py's
+# B = 1024 and in its 256-lane rescue, and the bench scene's dense
+# Newton systems (n_x 151) of the quadratic and compact structures
+K1_STRUCT_NAME = "K1 chol_solve r=1 (psd_solve), dense structures"
+K1_STRUCT_SHAPES = (("generic", (1024, 190, 1)),
+                    ("generic_rescue", (256, 190, 1)),
+                    ("quadratic_compact", (4096, 151, 1)))
 
 # bench.py's other single-vehicle configurations (bench.py:233-345) at
 # bench.py's settings for each: budgets, rescue, recovery metric and
@@ -852,6 +931,25 @@ def build_problem(T, config="p2p_holonomic"):
     return problem
 
 
+def build_structures_problem(T, options=None):
+    """Phase 20's scene: bench.py's p2p_dubins scene (bench.py:239-251: a
+    5 m room, a 0.4 m circle at (0.5, 0.2), vmax 0.7, |w| <= pi/3) without
+    ``substitution``, the exact-integral Dubins whose cubic tan-half-angle
+    rows leave no quadratic structure; initialized."""
+    vehicle = T.Dubins(shapes=T.Circle(0.1),
+                       bounds={"vmax": 0.7, "wmax": np.pi / 3.0,
+                               "wmin": -np.pi / 3.0})
+    vehicle.set_initial_conditions([-1.5, -1.5, 0.0])
+    vehicle.set_terminal_conditions([2.0, 2.0, 0.0])
+    environment = T.Environment(room={"shape": T.Square(5.0)})
+    environment.add_obstacle(T.Obstacle({"position": [0.5, 0.2]},
+                                        shape=T.Circle(0.4)))
+    problem = T.Point2point(vehicle, environment, freeT=False)
+    problem.set_options({"verbose": 0, **(options or {})})
+    problem.init()
+    return problem
+
+
 def build_scene(T, scene, options=None):
     """One of the example scenes of phase 16 in the package ``T`` (the
     port, or in the tests the JAX package), not yet initialized:
@@ -1050,10 +1148,17 @@ def launch_counts():
             "fused_inner": fa.fused_inner.launches}
 
 
+def k1_launches_by_systems():
+    """K1's launch counter by the number of systems a launch solved."""
+    from omg_tools_torch.ops import psd_kernels as pk
+    return {str(n): c for n, c in sorted(pk.psd_solve.by_systems.items())}
+
+
 def zero_launch_counts():
     from omg_tools_torch.ops import fused_alm as fa
     from omg_tools_torch.ops import psd_kernels as pk
     pk.psd_solve.launches = pk.psd_solve_multi.launches = 0
+    pk.psd_solve.by_systems.clear()
     fa.fused_inner.launches = 0
 
 
@@ -1122,13 +1227,40 @@ def cache_phase(T, device, consts, setup_s):
     return out
 
 
-class ParityReference:
+class ReferenceProcess:
+    """A reference computed by this script in a one-thread process of its
+    own (``python chip_smoke.py FLAG ARG``), beside the device phases.
+    ``wait()`` waits for it and returns (its last line's JSON, the seconds
+    waited); the process is stopped on exit."""
+
+    def __init__(self, flag, arg, timeout_s, what):
+        self.timeout_s, self.what = timeout_s, what
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, arg], cwd=HERE,
+            stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "OMP_NUM_THREADS": "1"})
+
+    def wait(self):
+        t0 = time.time()
+        out, _ = self.proc.communicate(timeout=self.timeout_s)
+        check(self.proc.returncode == 0,
+              f"the {self.what}'s process exited {self.proc.returncode}")
+        return json.loads(out.strip().splitlines()[-1]), time.time() - t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class ParityReference(ReferenceProcess):
     """Phase 8's reference rollout (the port's scipy solver on the bench
-    scene's scenario 0, float64 on the host: minutes) computed by this
-    script in a process of its own (``--parity-reference``), started after
-    setup, so that it runs beside the device phases.  The process stores
-    the record in the host-tensor cache, where ``parity_phase`` reads it;
-    ``result()`` waits for it.  The process is stopped on exit."""
+    scene's scenario 0, float64 on the host: minutes), started after
+    setup (``--parity-reference``).  The process stores the record in the
+    host-tensor cache, where ``parity_phase`` reads it."""
 
     def __init__(self, runner, x0, p0, workdir):
         from omg_tools_torch.tools.parity import reference_key
@@ -1142,27 +1274,13 @@ class ParityReference:
               "the parity reference is already in the cache")
         inputs = os.path.join(workdir, "parity_inputs.npz")
         np.savez(inputs, x0=self.x0, p0=self.p0)
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parity-reference",
-             inputs], cwd=HERE, stdout=subprocess.PIPE, text=True,
-            env={**os.environ, "OMP_NUM_THREADS": "1"})
+        super().__init__("--parity-reference", inputs,
+                         PARITY_REFERENCE_TIMEOUT_S, "parity reference")
 
     def result(self):
         """(the reference's own seconds, the seconds waited for it)."""
-        t0 = time.time()
-        out, _ = self.proc.communicate(timeout=PARITY_REFERENCE_TIMEOUT_S)
-        check(self.proc.returncode == 0,
-              f"the parity reference's process exited {self.proc.returncode}")
-        return json.loads(out.strip().splitlines()[-1])["reference_s"], \
-            time.time() - t0
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        line, waited_s = self.wait()
+        return line["reference_s"], waited_s
 
 
 def parity_reference(inputs):
@@ -1331,20 +1449,30 @@ def closed_loop_phase(device):
     return k1_total, per_update
 
 
-def example_phase(script="p2p_holonomic.py"):
-    """``examples_torch/<script>`` in smoke mode (two updates) in a
-    process of its own, on the card."""
-    t0 = time.time()
-    path = os.path.join("examples_torch", script)
-    out = subprocess.run(
-        [sys.executable, os.path.join(HERE, path)],
-        env={**os.environ, "OMG_SMOKE": "1"}, capture_output=True,
-        text=True, timeout=EXAMPLE_TIMEOUT_S, cwd=HERE)
-    line = {"example": path, "rc": out.returncode,
-            "seconds": time.time() - t0,
-            "stdout": out.stdout.strip().splitlines()[-1:]}
-    print("example " + json.dumps(line), flush=True)
-    check(out.returncode == 0, f"{path} failed: {out.stderr[-2000:]}")
+def example_phase(*scripts):
+    """``examples_torch/<script>`` in smoke mode (two updates), each in a
+    process of its own on the card, all started together (by default
+    ``p2p_holonomic.py``); ``seconds`` is each process's own wall time."""
+    procs = []
+    for script in scripts or ("p2p_holonomic.py",):
+        path = os.path.join("examples_torch", script)
+        procs.append((path, time.time(), subprocess.Popen(
+            [sys.executable, os.path.join(HERE, path)],
+            env={**os.environ, "OMG_SMOKE": "1"}, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=HERE)))
+    try:
+        for path, t0, proc in procs:
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            line = {"example": path, "rc": proc.returncode,
+                    "seconds": time.time() - t0, "together_with": len(procs),
+                    "stdout": stdout.strip().splitlines()[-1:]}
+            print("example " + json.dumps(line), flush=True)
+            check(proc.returncode == 0, f"{path} failed: {stderr[-2000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def build_formation(T, device):
@@ -1804,8 +1932,7 @@ def scene_phase(T, device, cache_root):
     smoke mode, and the batched obstacle runs.  Returns the loops'
     lines."""
     loops = {scene: scene_loop(T, device, scene) for scene in SCENE_LOOPS}
-    for scene in SCENE_LOOPS:
-        example_phase(scene + ".py")
+    example_phase(*[scene + ".py" for scene in SCENE_LOOPS])
     obstacle_phase(T, device, cache_root)
     return loops
 
@@ -2244,6 +2371,421 @@ def dist_records(device, loops):
                 shape=(group["B"], group["n_x"], 1), tag=f"{scene}_{g}")
             rec["launches_per_x_update"] = rec.pop("launches_per_update")
             records.append(("psd_solve", rec))
+    return records
+
+
+class StructuresReference(ReferenceProcess):
+    """Phase 20's CPU side (``--structures-reference``): the exact Dubins'
+    cold setup (its host tensors into the run's cache, where phase 20 then
+    finds them), and the float64 CPU runner's cut-budget cold solve of
+    STRUCT_CHECK_LANES scenarios with its own sensitivity to a 1e-15
+    perturbation of the start."""
+
+    def __init__(self, workdir):
+        self.out = os.path.join(workdir, "structures_reference.npz")
+        super().__init__("--structures-reference", self.out,
+                         STRUCT_REFERENCE_TIMEOUT_S, "structures reference")
+
+    def result(self):
+        """(the process's JSON line, its arrays, the seconds waited)."""
+        line, waited_s = self.wait()
+        return line, dict(np.load(self.out)), waited_s
+
+
+def structures_check_batch(runner):
+    """The cut-budget check's inputs: the first STRUCT_CHECK_LANES of
+    phase 20's scenarios, make_batch's start plus a seeded 1e-2."""
+    import torch
+    starts, goals = scenarios(STRUCT_BATCH, "p2p_dubins")
+    x0, p0, _ = runner.make_batch(starts[:STRUCT_CHECK_LANES],
+                                  goals[:STRUCT_CHECK_LANES])
+    noise = np.random.default_rng(0).standard_normal(tuple(x0.shape))
+    return x0 + STRUCT_CHECK_NOISE * torch.as_tensor(noise, dtype=x0.dtype,
+                                                     device=x0.device), p0
+
+
+def structures_reference(out):
+    """``--structures-reference OUT``: the process of
+    ``StructuresReference``: the cold setup of the exact Dubins' float64
+    CPU runner (problem and runner, nothing from the cache), then its
+    cut-budget cold solve and the same from the start moved by 1e-15
+    (relative); writes the planned states to OUT, prints its seconds."""
+    sys.path.insert(0, HERE)
+    import torch
+    import omg_tools_torch as T
+    from omg_tools_torch.utils import cache
+    torch.set_num_threads(1)
+    t0 = time.time()
+    problem = build_structures_problem(T, {"device": "cpu"})
+    hit = cache.load_tensors(problem.transcription.fingerprint,
+                             "quadQ") is not None
+    runner = T.BatchedP2PRunner(
+        problem, dtype=torch.float64, device="cpu",
+        alm_options=T.ALMOptions(**STRUCT_CHECK_BUDGET))
+    setup_s = time.time() - t0
+    x0, p0 = structures_check_batch(runner)
+    t1 = time.time()
+    st = runner.init_solver_state(x0, p0)
+    solve_s = time.time() - t1
+    gen = torch.Generator().manual_seed(0)
+    moved = x0 * (1 + F64_PERTURB * torch.randn(x0.shape, generator=gen,
+                                                dtype=x0.dtype))
+    st_p = runner.init_solver_state(moved, p0)
+    np.savez(out, x0=x0.numpy(), p0=p0.numpy(),
+             planned=planned_state(runner, st.x, p0).numpy(),
+             planned_moved=planned_state(runner, st_p.x, p0).numpy(),
+             feas=st.feas.numpy())
+    print(json.dumps({"setup_cold_s": setup_s, "cache_hit": hit,
+                      "structure": runner.structure,
+                      "structure_reason": runner.structure_reason,
+                      "n_x": runner.n_x, "n_g": runner.tr.n_g,
+                      "solve_s": solve_s, "threads": 1}), flush=True)
+
+
+def generic_phase(T, device, reference):
+    """Phase 20 (a): bench.py's generic branch on the exact Dubins (see
+    STRUCT_ROLLOUT), its setup from the cache the reference's process
+    filled, one counted and timed 20-step rollout (CUDA events at the step
+    boundaries, the captures after every step), and the cut-budget check
+    of the card's float32 and float64 cold solves against the CPU's."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.ops.alm import CapturedCall
+    from omg_tools_torch.utils import cache
+    ref, ref_arrays, waited_s = reference.result()
+    t0 = time.time()
+    problem = build_structures_problem(T)
+    hit = cache.load_tensors(problem.transcription.fingerprint,
+                             "quadQ") is not None
+    runner = T.BatchedP2PRunner(
+        problem, dtype=torch.float32, device=device,
+        alm_options=T.ALMOptions(inner_iter=STRUCT_INNER))
+    starts, goals = scenarios(STRUCT_BATCH, "p2p_dubins")
+    x0, p0, state = runner.make_batch(starts, goals)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    check(not ref["cache_hit"], "the exact Dubins' cold setup found its "
+          "host tensors in the cache")
+    check(hit, "phase 20's setup did not find the exact Dubins' host "
+          "tensors (no Q) in the cache")
+    check(runner.structure == "generic",
+          f"exact Dubins float32: structure {runner.structure} "
+          f"({runner.structure_reason}), not generic")
+    n_x, n_g = runner.n_x, runner.tr.n_g
+    roll = runner.rollout_fn(N_STEPS, **STRUCT_ROLLOUT)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    c0 = CapturedCall.captures
+    t1 = time.time()
+    st = runner.init_solver_state(x0, p0)
+    torch.cuda.synchronize()
+    init_s = time.time() - t1
+    init_launches = launch_counts()
+    init_captures = CapturedCall.captures - c0
+    # the counted and timed run
+    zero_launch_counts()
+    c1 = CapturedCall.captures
+    events, captures = [_recorded_event()], []
+
+    def on_step(k):
+        events.append(_recorded_event())
+        captures.append(CapturedCall.captures - c1)
+    t2 = time.time()
+    carry, states = roll(st, p0, state, on_step=on_step)
+    torch.cuda.synchronize()
+    rollout_s = time.time() - t2
+    launches = launch_counts()
+    by_systems = k1_launches_by_systems()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    states_np = states.double().cpu().numpy()
+    feas_raw = carry[0].feas_raw.double().cpu().numpy()
+    d0 = np.linalg.norm(starts - goals, axis=1)
+    d1 = np.linalg.norm(states_np[:, -1] - goals, axis=1)
+    spk = runner.steps_per_knot
+    # a capture is due at the first step of each budget class (and its
+    # rescue): the easy budget's at k = 0, the hard one's at the first
+    # knot passage; none after
+    first = {0, spk} if N_STEPS > spk else {0}
+    late = [k for k in range(1, N_STEPS) if k not in first
+            and captures[k] != captures[k - 1]]
+    out = {"config": "p2p_dubins_exact", "structure": runner.structure,
+           "structure_reason": runner.structure_reason,
+           "n_x": n_x, "n_g": n_g, "batch": STRUCT_BATCH,
+           "n_steps": N_STEPS, "rollout": STRUCT_ROLLOUT,
+           "inner_iter": STRUCT_INNER,
+           "setup_cold_s": ref["setup_cold_s"],
+           "setup_cold_threads": ref["threads"],
+           "setup_cold_cache_hit": ref["cache_hit"],
+           "setup_s": setup_s, "setup_cache_hit": hit,
+           "reference_waited_s": waited_s,
+           "cold_solve_s": init_s, "rollout_s": rollout_s,
+           "solves_per_s": STRUCT_BATCH * N_STEPS / rollout_s,
+           "p50_step_latency_ms": float(np.median(step_ms)),
+           "max_step_latency_ms": float(np.max(step_ms)),
+           "step_ms": step_ms,
+           "feas_raw_p99": float(np.percentile(feas_raw, 99)),
+           "feas_raw_max": float(np.max(feas_raw)),
+           "diverged_lanes": int(np.sum(feas_raw > 1e-2)),
+           "nan_lanes": int(np.sum(~np.isfinite(feas_raw)
+                                   | ~np.isfinite(states_np).all((1, 2)))),
+           "mean_progress_frac": float(np.mean((d0 - d1) / d0)),
+           "k1_launches": launches["psd_solve"],
+           "k1_launches_per_step": launches["psd_solve"] / N_STEPS,
+           "k1_launches_by_systems": by_systems,
+           "k1_variant": pk.variant(n_x, 1, torch.float32),
+           "init_launches": init_launches, "rollout_launches": launches,
+           "captures_cold_solve": init_captures,
+           "captures_after_step": captures, "late_captures": late,
+           "captures_total": CapturedCall.captures - c0,
+           "dense_J_bytes": STRUCT_BATCH * n_g * n_x * 4,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print("generic " + json.dumps(out), flush=True)
+    check(launches["psd_solve"] > 0, "K1 never launched on the generic path")
+    check(sum(by_systems.values()) == launches["psd_solve"],
+          f"K1's launches by width {by_systems} do not sum to "
+          f"{launches['psd_solve']}")
+    check(launches["psd_solve_multi"] == 0 and launches["fused_inner"] == 0,
+          f"the generic path launched {launches}")
+    check(out["nan_lanes"] == 0, f"{out['nan_lanes']} non-finite lanes")
+    check(out["mean_progress_frac"] > 0.0, "no progress toward the goals")
+    check(not late, f"CUDA graphs captured after steps {late}")
+    check(out["k1_variant"] == "block", f"K1 at {STRUCT_BATCH} x {n_x} "
+          f"takes {out['k1_variant']}")
+
+    # the cut-budget check: the card's float32 and float64 cold solves of
+    # the reference's inputs against its float64 CPU solve
+    want = ref_arrays["planned"]
+    err_self = np.abs(ref_arrays["planned_moved"] - want).max(1)
+    lines = {}
+    for dtype in (torch.float32, torch.float64):
+        cut = T.BatchedP2PRunner(problem, dtype=dtype, device=device,
+                                 alm_options=T.ALMOptions(
+                                     **STRUCT_CHECK_BUDGET))
+        xc = torch.as_tensor(ref_arrays["x0"], dtype=dtype, device=device)
+        pc = torch.as_tensor(ref_arrays["p0"], dtype=dtype, device=device)
+        zero_launch_counts()
+        stc = cut.init_solver_state(xc, pc)
+        got = planned_state(cut, stc.x, pc).double().cpu().numpy()
+        err = np.abs(got - want).max(1)
+        lines[str(dtype).split(".")[-1]] = {
+            "max_err_m": float(err.max()), "p50_err_m": float(np.median(err)),
+            "feas_max": float(stc.feas.max()), "launches": launch_counts()}
+    check_out = {"lanes": STRUCT_CHECK_LANES, "budget": STRUCT_CHECK_BUDGET,
+                 "start_noise": STRUCT_CHECK_NOISE, **lines,
+                 "cpu_solve_s": ref["solve_s"],
+                 "cpu_feas_max": float(ref_arrays["feas"].max()),
+                 "cpu_f64_perturbed": {"relative": F64_PERTURB,
+                                       "max_err_m": float(err_self.max()),
+                                       "p50_err_m": float(
+                                           np.median(err_self))}}
+    print("generic_check " + json.dumps(check_out), flush=True)
+    for tag, line in lines.items():
+        check(line["max_err_m"] < PARITY_GATE_M,
+              f"generic {tag} card vs CPU planned states differ by "
+              f"{line['max_err_m']} m")
+        check(line["launches"]["psd_solve"] > 0,
+              f"generic {tag} check: K1 never launched")
+    return out
+
+
+def dense_phase(T, device, main):
+    """Phase 20 (b): the bench scene's float32 runner, built again from
+    the cache, forced onto ``quadratic`` (no compaction) and then
+    ``compact`` (no arrow); CA_STEPS steps each at the bench settings
+    from phase 7's cold solve (its multipliers put back into the
+    transcription's row order for ``quadratic``), counted and timed.
+    Every lane's planned states within 2 cm of phase 10's compact-arrow
+    states at every step, or within DENSE_SPREAD_FACTOR x the lane's own
+    move in compact-arrow's rollout from a rounding-sized move of the cold
+    solve (see DENSE_SPREAD_DRAWS).  K1 at the 151-row block variant, no K2
+    or K3.  B = BATCH when the dense J (B x n_g x n_x x 4 bytes) fits in
+    half the card's memory, else the largest power of two that does."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    runner, _, _, _, _, p0, state, setup_s, hit = setup_phase(T, device)
+    check(hit, "phase 20 (b): the bench runner did not come from the cache")
+    st, ca_states = main["st"], main["ca_states"]
+    n_x, n_g = runner.n_x, runner.tr.n_g
+    total = torch.cuda.get_device_properties(device).total_memory
+    B = BATCH
+    while B > 1 and B * n_g * n_x * 4 > total / 2:
+        B //= 2
+    cut = {"dense_J_bytes": B * n_g * n_x * 4, "half_card_bytes": total / 2,
+           "batch": B, "cut_from": BATCH if B < BATCH else None}
+    st = type(st)(*[a[:B] for a in st])
+    p0, state, ca_states = p0[:B], state[:B], ca_states[:B]
+    # each lane's own move under rounding-sized moves of the cold solve
+    runner.fused_plan = None
+    check(runner.structure == "compact-arrow",
+          f"structure {runner.structure} without a fused plan")
+    roll = runner.rollout_fn(CA_STEPS, **ROLLOUT)
+    gen = torch.Generator(device).manual_seed(0)
+    spread = torch.zeros(B, dtype=torch.float64, device=device)
+    for _ in range(DENSE_SPREAD_DRAWS):
+        x = st.x * (1 + F32_PERTURB * torch.randn(
+            st.x.shape, generator=gen, device=device, dtype=st.x.dtype))
+        _, moved = roll(st._replace(x=x), p0, state, runner.consts())
+        spread = torch.maximum(spread, (moved.double() - ca_states.double())
+                               .abs().amax((1, 2)))
+    compact = runner.compact
+    perm = torch.as_tensor(compact.row_perm, device=device)
+    out = {"setup_s": setup_s, "cache_hit": hit, "n_x": n_x, "n_g": n_g,
+           "spread_draws": DENSE_SPREAD_DRAWS,
+           "spread_relative": F32_PERTURB,
+           "spread_max_m": float(spread.max()),
+           "spread_p99_m": float(torch.quantile(spread, 0.99)), **cut}
+    print("dense_setup " + json.dumps(out), flush=True)
+    for structure in DENSE_STRUCTURES:
+        if structure == "quadratic":
+            runner.compact = None
+            lam = torch.empty_like(st.lam)
+            lam[:, perm] = st.lam
+            st_s = st._replace(lam=lam)
+        else:
+            runner.compact = compact
+            compact.arrow = None
+            st_s = st
+        runner.solver = runner.make_solver(runner._alm_options)
+        check(runner.structure == structure,
+              f"forced {structure}, got {runner.structure}")
+        consts = runner.consts()
+        roll = runner.rollout_fn(CA_STEPS, **ROLLOUT)
+        zero_launch_counts()
+        carry, states = roll(st_s, p0, state, consts)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        by_systems = k1_launches_by_systems()
+        carry, states, run_s, _, step_ms = timed_rollouts(
+            roll, st_s, p0, state, consts, timed_runs=1)
+        lane_err = (states.double() - ca_states.double()).abs().amax(2)
+        lane_max = lane_err.amax(1)
+        over = lane_max > 0.01
+        unexplained = (lane_max >= PARITY_GATE_M) & (
+            lane_max > DENSE_SPREAD_FACTOR * spread)
+        out[structure] = {
+            "structure": runner.structure, "rollout_s": run_s,
+            "step_ms": step_ms,
+            "p50_step_latency_ms": float(np.median(step_ms)),
+            "max_err_m_by_step": lane_err.amax(0).cpu().tolist(),
+            "p99_err_m_by_step": torch.quantile(
+                lane_err, 0.99, dim=0).cpu().tolist(),
+            "lanes_over_1cm": {"err_m": lane_max[over].cpu().tolist(),
+                               "own_spread_m": spread[over].cpu().tolist()},
+            "feas_p99": float(np.percentile(
+                carry[0].feas.double().cpu().numpy(), 99)),
+            "launches": launches, "k1_launches_by_systems": by_systems,
+            "k1_variant": pk.variant(n_x, 1, torch.float32)}
+        print(f"dense_{structure} " + json.dumps(out[structure]), flush=True)
+        check(bool(torch.isfinite(states).all()),
+              f"{structure}: non-finite states")
+        check(not bool(unexplained.any()),
+              f"{structure}: lanes {lane_max[unexplained].tolist()} m "
+              "from compact-arrow's, beyond their own spread")
+        check(launches["psd_solve"] > 0
+              and launches["psd_solve_multi"] == 0
+              and launches["fused_inner"] == 0,
+              f"{structure} launched {launches}")
+        check(out[structure]["k1_variant"] == "block",
+              f"K1 at {n_x} rows takes {out[structure]['k1_variant']}")
+    return out
+
+
+def export_phase(T, device, workdir):
+    """Phase 20 (c): ExportP2P of the bench scene from a float64 runner on
+    the card and from the same runner on the CPU; the two directories must
+    be identical byte for byte.  Then, where the machine has g++ and make,
+    the harness built and run (``make``, ``./test .``: PASSED)."""
+    import filecmp
+    import torch
+    problem = build_problem(T)
+    cpu = T.BatchedP2PRunner(problem, dtype=torch.float64, device="cpu")
+    card = cpu.to(device)
+    dirs = {}
+    t0 = time.time()
+    for tag, runner in (("card", card), ("cpu", cpu)):
+        dirs[tag] = T.ExportP2P(problem, {"directory": os.path.join(
+            workdir, "export_" + tag)}).run(runner)
+    export_s = time.time() - t0
+    names = sorted(os.path.relpath(os.path.join(d, f), dirs["cpu"])
+                   for d, _, files in os.walk(dirs["cpu"]) for f in files)
+    other = sorted(os.path.relpath(os.path.join(d, f), dirs["card"])
+                   for d, _, files in os.walk(dirs["card"]) for f in files)
+    _, mismatch, errors = filecmp.cmpfiles(dirs["cpu"], dirs["card"], names,
+                                           shallow=False)
+    tools = {t: shutil.which(t) for t in ("g++", "make")}
+    out = {"files": len(names), "same_names": names == other,
+           "mismatch": mismatch, "errors": errors, "export_s": export_s,
+           "found": tools}
+    if all(tools.values()):
+        subprocess.run(["make"], cwd=dirs["card"], check=True,
+                       capture_output=True, timeout=300)
+        res = subprocess.run(["./test", "."], cwd=dirs["card"],
+                             capture_output=True, text=True, timeout=300)
+        out["harness"] = {"returncode": res.returncode,
+                          "passed": "PASSED" in res.stdout,
+                          "tail": res.stdout.strip().splitlines()[-2:]}
+    else:
+        out["harness"] = ("g++ or make missing on the card's machine: the "
+                          "build and run is left to the CPU tests "
+                          "(tests/test_torch_export.py)")
+    print("export " + json.dumps(out), flush=True)
+    check(out["same_names"] and not mismatch and not errors,
+          f"card and CPU exports differ: {mismatch} {errors}")
+    if all(tools.values()):
+        check(out["harness"]["returncode"] == 0 and out["harness"]["passed"],
+              f"the exported harness failed: {out['harness']}")
+    return out
+
+
+def structures_phase(T, device, reference, main, workdir):
+    """Phase 20: (a) ``generic_phase``, (b) ``dense_phase``, (c)
+    ``export_phase``, within STRUCT_PHASE_BUDGET_S (the exact Dubins'
+    cold setup runs in the reference's process and is printed apart).
+    Returns (a)'s and (b)'s lines."""
+    os.environ["OMG_CACHE_DIR"] = main["cache_root"]
+    t0 = time.time()
+    generic = generic_phase(T, device, reference)
+    dense = dense_phase(T, device, main)
+    export_phase(T, device, workdir)
+    seconds = time.time() - t0
+    # the wait for the reference's process is its cold setup and CPU
+    # solves still running (with ``--structures-only`` it starts with the
+    # phase); the budget holds the phase's own work
+    own_s = seconds - generic["reference_waited_s"]
+    print("structures_phase " + json.dumps({
+        "seconds": seconds, "seconds_without_reference_wait": own_s,
+        "budget_s": STRUCT_PHASE_BUDGET_S,
+        "setup_cold_s": generic["setup_cold_s"]}), flush=True)
+    check(own_s <= STRUCT_PHASE_BUDGET_S,
+          f"phase 20 took {own_s} s > {STRUCT_PHASE_BUDGET_S} s")
+    return generic, dense
+
+
+def structures_records(device, generic, dense):
+    """Phase 15's records of K1 at phase 20's shapes (float32), each with
+    the launches at its own number of systems in the runs that take it:
+    (a)'s rollout and (b)'s quadratic and compact rollouts at the bench
+    settings."""
+    by_systems = {"generic": [generic["k1_launches_by_systems"]],
+                  "quadratic_compact": [dense[s]["k1_launches_by_systems"]
+                                        for s in DENSE_STRUCTURES]}
+    records = []
+    for tag, (N, n, r) in K1_STRUCT_SHAPES:
+        line = kernel_phase_f64(K1_STRUCT_NAME, "psd_solve", N, n, r,
+                                device, timed=True, shape=tag,
+                                dtype="float32")
+        check(line["variant"] == "block",
+              f"K1 {tag}: {N} x {n} takes {line['variant']}, not block")
+        counts = by_systems[tag.removesuffix("_rescue")]
+        records.append(("psd_solve", {
+            "name": f"{K1_STRUCT_NAME}, {tag}", "route": "cuda",
+            "source": SOURCE, "replaces": KERNELS[0][2],
+            "launches": sum(c.get(str(N), 0) for c in counts),
+            "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+            "call_ms": line["call_ms"], "variant": line["variant"],
+            "shape": [N, n, r], "dtype": "float32"}))
     return records
 
 
@@ -2722,8 +3264,8 @@ def config_phases(T, device, config, cache_root, B=BATCH):
         timed_runs=1, rollout=roll, config=config)
     k3_entry[1]["launches"] = launches["fused_inner"]
     plan = runner.fused_plan
-    ca = compact_arrow_phase(runner, st, p0, state, rollout=roll,
-                             config=config)
+    ca, _ = compact_arrow_phase(runner, st, p0, state, rollout=roll,
+                                config=config)
     cross_check_phase(T, runner, st, starts, goals, p0, config=config,
                       lanes=CONFIG_CROSS_LANES)
     chol = config_kernels(config, plan, B, rescue)
@@ -2852,7 +3394,8 @@ def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS,
                         rollout=None, config="p2p_holonomic"):
     """Phase 10: the compact-arrow path (K1 + K2) on the same runner and
     batch, with the fused plan taken off, warm-started from the fused cold
-    solve; its launch counts are the K1/K2 records'."""
+    solve; returns its launch counts (the K1/K2 records') and the states
+    of its timed run (phase 20 (b) holds the dense structures to them)."""
     import torch
     runner.fused_plan = None
     check(runner.structure == "compact-arrow",
@@ -2884,7 +3427,7 @@ def compact_arrow_phase(runner, st, p0, state, n_steps=CA_STEPS,
     for name in ("psd_solve", "psd_solve_multi"):
         check(launches[name] > 0,
               f"{name} never launched on the compact-arrow path")
-    return launches
+    return launches, states
 
 
 def profile_phase(runner, st, p0, state, path):
@@ -3019,6 +3562,9 @@ def main():
     if sys.argv[1:2] == ["--parity-reference"]:
         parity_reference(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--structures-reference"]:
+        structures_reference(sys.argv[2])
+        return
     started = time.time()
     # an empty host-tensor cache of the run's own: the first build and the
     # parity reference are computed here, never loaded
@@ -3029,6 +3575,26 @@ def main():
             run(cache_root, stack, started)
     finally:
         shutil.rmtree(cache_root, ignore_errors=True)
+
+
+def structures_only(T, device, structures_ref, cache_root, started):
+    """``--structures-only``: phases 4, 10 (on the fused runner's cold
+    solve, no rollout of phase 7) and 20, then the device times of phase
+    20's K1 shapes and the kernels line; no final line."""
+    import torch
+    runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
+        setup_phase(T, device)
+    check(not hit, "the first build found its host tensors in the cache")
+    st = runner.init_solver_state(x0, p0, consts)
+    _, ca_states = compact_arrow_phase(runner, st, p0, state)
+    generic, dense = structures_phase(
+        T, device, structures_ref,
+        {"st": st, "ca_states": ca_states, "cache_root": cache_root},
+        cache_root)
+    records = structures_records(device, generic, dense)
+    torch.cuda.synchronize()
+    print_elapsed(started)
+    print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
 
 
 def print_elapsed(started):
@@ -3079,6 +3645,10 @@ def run(cache_root, stack, started):
             print(json.dumps({"kernels": [rec for _, rec in records]}),
                   flush=True)
             return
+    if "--structures-only" in sys.argv[1:]:
+        structures_only(T, device, stack.enter_context(
+            StructuresReference(cache_root)), cache_root, started)
+        return
     runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
         setup_phase(T, device)
     check(not hit, "the first build found its host tensors in the cache")
@@ -3089,9 +3659,13 @@ def run(cache_root, stack, started):
     k3_entry, k3_timers = k3_kernel_phase(runner, consts, x0, p0)
     st, launches, main_out = main_path_phase(runner, consts, starts, goals,
                                              x0, p0, state, setup_s)
+    # phase 20's CPU side and the exact Dubins' cold setup, after the main
+    # path's timed rollouts and beside everything up to phase 20
+    structures_ref = stack.enter_context(StructuresReference(cache_root))
     profile_phase(runner, st, p0, state, "compact-arrow-fused")
-    launches.update({k: v for k, v in compact_arrow_phase(
-        runner, st, p0, state).items() if k != "fused_inner"})
+    ca_launches, ca_states = compact_arrow_phase(runner, st, p0, state)
+    launches.update({k: v for k, v in ca_launches.items()
+                     if k != "fused_inner"})
     profile_phase(runner, st, p0, state, "compact-arrow")
     cross_check_phase(T, runner, st, starts, goals, p0)
     k1_f64_launches, k1_f64_per_update = closed_loop_phase(device)
@@ -3110,6 +3684,12 @@ def run(cache_root, stack, started):
     loops.update(gcode_phase(T, device))
     # phase 19: rendezvous, dual decomposition, generic ADMM and the IPM
     dist = distributed_phase(T, device)
+    # phase 20: the runner's generic, quadratic and compact structures and
+    # the export
+    generic, dense = structures_phase(
+        T, device, structures_ref,
+        {"st": st, "ca_states": ca_states, "cache_root": cache_root},
+        cache_root)
     # phase 8's gate, its reference computed meanwhile
     parity_phase(T, device, reference, x0, p0, main_out["feas_p99"])
     # phase 15: device times, after every timed run
@@ -3127,6 +3707,7 @@ def run(cache_root, stack, started):
         shape=K1_FLEET_SHAPE, tag="formation")))
     records += loop_records(device, loops)
     records += dist_records(device, dist)
+    records += structures_records(device, generic, dense)
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]

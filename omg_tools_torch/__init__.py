@@ -28,8 +28,11 @@ AGV, Trailer, Quadrotor, Quadrotor3D and SimpleQuadrotor3D vehicles, the
 batched rollouts of bench.py's p2p_holonomic, p2p_3dquadrotor and
 p2p_dubins configurations (with per-scenario obstacle states), and the
 solver backends: the ALM, the interior-point method (``solver="ipm"``,
-``make_ip_solver``) and the scipy reference; ``ROADMAP.md`` lists what is
-still to port.
+``make_ip_solver``) and the scipy reference, the batched runner's
+structures (``quadratic``, ``generic``, ``compact``, ``compact-arrow`` and
+``compact-arrow-fused``), and the embedded C++ runtime's export
+(``ExportP2P``, ``ExportFormation``, ``ExportRendezVous``);
+``ROADMAP.md`` lists what is still to port.
 """
 
 __version__ = "0.1.0"
@@ -82,3 +85,6 @@ from .gui.svg_reader import SVGReader
 from .gui.gui import EnvironmentGUI
 from .ops.alm import ALMOptions, ALMState
 from .ops.solver import IPOptions, IPState, make_ip_solver
+from .export.export_p2p import ExportP2P
+from .export.export_formation import ExportFormation, ExportADMM
+from .export.export_rendezvous import ExportRendezVous

@@ -140,8 +140,8 @@ class CapturedCall:
     it copies are kept (:func:`ops.spline.keep_device_constants`) as long
     as the graph.  Nothing in ``fn`` may read a value back to the host.
     K1's launches in a replay are counted at the replay
-    (``psd_solve.launches``); the capture launches nothing.  Every capture
-    adds one to the class attribute ``captures``.
+    (``psd_solve.launches`` and ``by_systems``); the capture launches
+    nothing.  Every capture adds one to the class attribute ``captures``.
 
     Python's cyclic garbage collector is off during the capture: a dead
     reference cycle that holds an older graph (a G-code window's problem
@@ -162,6 +162,7 @@ class CapturedCall:
             torch.cuda.current_stream(device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             before = psd_solve.captured
+            before_by = psd_solve.captured_by_systems.copy()
             collecting = gc.isenabled()
             gc.disable()
             try:
@@ -171,12 +172,14 @@ class CapturedCall:
                 if collecting:
                     gc.enable()
         self.k1_launches = psd_solve.captured - before
+        self.k1_by_systems = psd_solve.captured_by_systems - before_by
 
     def __call__(self, *args):
         for buf, a in zip(self.inputs, args):
             buf.copy_(a)
         self.graph.replay()
         psd_solve.launches += self.k1_launches
+        psd_solve.by_systems.update(self.k1_by_systems)
         return self.outputs
 
 

@@ -9,9 +9,11 @@ tensors (float32 or float64) it launches the hand-written Hopper kernel of
 what the kernel does not take.  A system too large for a block's shared
 memory takes the ``global`` variant, which factors it in a global-memory
 workspace that the wrapper allocates (n + r rows of n a system).  Each wrapper counts its kernel launches in
-a plain integer attribute, ``launches``; a K1 call made while a CUDA graph
-is being captured launches nothing and counts in ``psd_solve.captured``
-instead, and each replay of that graph adds its calls to ``launches``
+a plain integer attribute, ``launches``; K1 also counts them by the number
+of systems a launch solves, in the Counter ``psd_solve.by_systems``.  A K1
+call made while a CUDA graph is being captured launches nothing and counts
+in ``psd_solve.captured`` (and ``captured_by_systems``) instead, and each
+replay of that graph adds its calls to ``launches`` and ``by_systems``
 (``ops.alm.CapturedCall``).
 
 A system that is not positive definite gives non-finite output -- rsqrt of
@@ -20,6 +22,8 @@ non-finite fallback relies on it.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -167,8 +171,10 @@ def psd_solve(H, g):
     _launch(H, g, out, N, n, 1)
     if torch.cuda.is_current_stream_capturing():
         psd_solve.captured += 1     # launched by each replay of the graph
+        psd_solve.captured_by_systems[N] += 1
     else:
         psd_solve.launches += 1
+        psd_solve.by_systems[N] += 1
     return out
 
 
@@ -193,5 +199,7 @@ def psd_solve_multi(D, G):
 
 
 psd_solve.launches = 0
+psd_solve.by_systems = Counter()
 psd_solve.captured = 0
+psd_solve.captured_by_systems = Counter()
 psd_solve_multi.launches = 0

@@ -15,12 +15,29 @@ recipe (``problems/rollout_models.py``: Holonomic, the quadrotors,
 HolonomicOrient, Dubins), obstacles with constant-acceleration motion
 (their states per scenario, ``make_batch(obstacle_states=)``) or on a
 caller-given spline trajectory (re-based one period on by a constant
-shift matrix every plant step), ideal plant update, the
-``compact-arrow`` solver structure and, in float32,
-``compact-arrow-fused`` (every inner iteration of an outer round
-in one launch of the fused kernel K3, ``ops/fused_alm.py``) wherever K3
-takes the plan.  The dense, generic and compact (no arrow) batched
-structures are not ported yet.
+shift matrix every plant step), ideal plant update, and the JAX
+package's solver structures, picked as it picks them:
+
+- ``quadratic``: g = c + A x + x'Q x with Q found by host AD and the
+  per-phase affine tensors of c(p), A(p) (``RolloutConsts``); the dense
+  Gauss-Newton system goes to K1;
+- ``generic``: no Q found (the exact-integral Dubins' cubic rows): J, g
+  and the objective's Hessian by ``torch.func`` every Newton step, one
+  forward-over-reverse replay of the transcription, on a CUDA card a
+  captured CUDA graph (``ops.alm``); K1 solves the dense system;
+- ``compact``: the family-compacted tensors (``ops/compact.py``) where no
+  block-arrow partition is found; the dense compact system goes to K1;
+- ``compact-arrow``: the block-arrow partition, K2 for the tail blocks and
+  K1 for the head;
+- ``compact-arrow-fused``, in float32: every inner iteration of an outer
+  round in one launch of the fused kernel K3 (``ops/fused_alm.py``)
+  wherever K3 takes the plan.
+
+``structure`` is derived from ``fused_plan``, ``compact``,
+``compact.arrow`` and the detected Q; a caller forces a structure by
+clearing them (``runner.fused_plan = None``, ``runner.compact = None`` or
+``runner.compact.arrow = None``) and building a new solver
+(``runner.solver = runner.make_solver(options)``); ``consts()`` follow.
 """
 
 from __future__ import annotations
@@ -42,7 +59,8 @@ from ..ops.fused_alm import FusedPlan
 from ..utils import cache as _cache
 from .rollout_models import make_rollout_model
 
-__all__ = ["BatchedP2PRunner", "CompactConsts", "resolve_device"]
+__all__ = ["BatchedP2PRunner", "RolloutConsts", "CompactConsts",
+           "resolve_device"]
 
 
 def resolve_device(device=None):
@@ -61,6 +79,24 @@ def pin_full_f32():
     torch.backends.cudnn.allow_tf32 = False
 
 
+class RolloutConsts(NamedTuple):
+    """The rollout's device tensors for the dense structures (quadratic
+    and generic).  The affine tensors are restricted to the varying
+    parameter columns ``vsel``; they and Q are None where the structure
+    has none."""
+    Q: Optional[torch.Tensor]      # scaled quadratic tensor (m, n, n)
+    c0: Optional[torch.Tensor]     # per-phase affine constraint constants
+    C1: Optional[torch.Tensor]
+    A0: Optional[torch.Tensor]
+    TA: Optional[torch.Tensor]
+    f0: Optional[torch.Tensor]
+    gf: Optional[torch.Tensor]
+    lb: torch.Tensor
+    ub: torch.Tensor
+    M: torch.Tensor                # shiftoverknot warm-start transform
+    vsel: Optional[torch.Tensor] = None   # the varying parameter columns
+
+
 class CompactConsts(NamedTuple):
     """The rollout's device tensors in family-compacted form."""
     CT: dict                    # CompactStructure.device_tensors()
@@ -68,6 +104,18 @@ class CompactConsts(NamedTuple):
     ub: torch.Tensor
     M: torch.Tensor             # shiftoverknot warm-start transform
     FS: Optional[dict] = None   # FusedPlan.shared() (fused structure)
+
+
+def _cA_at(C, phase, p):
+    """(c, A, f0, gf) of a batch p (B, n_p) at one phase, in raw units,
+    from the per-phase affine tensors over the varying columns."""
+    B = p.shape[0]
+    pv = p[:, C.vsel]                                        # (B, n_v)
+    c = C.c0[phase] + pv @ C.C1[phase].T                     # (B, m)
+    TA = C.TA[phase]                                         # (m, n, n_v)
+    A = C.A0[phase] + (pv @ TA.reshape(-1, TA.shape[-1]).T).reshape(
+        B, *TA.shape[:2])                                    # (B, m, n)
+    return (c, A, C.f0[phase].expand(B), C.gf[phase].expand(B, -1))
 
 
 def _fused_operands(fused_plan, C, phase):
@@ -116,7 +164,6 @@ class BatchedP2PRunner:
                 {"has_Q": np.asarray(Q is not None),
                  "Q": np.zeros((0,)) if Q is None else np.asarray(Q)})
         self._Q_raw = None if Q is None else np.asarray(Q)
-        structure = "quadratic" if Q is not None else "generic"
         vehicle = problem.vehicles[0]
         self.vehicle = vehicle
         self.n_x = tr.n_x
@@ -209,24 +256,24 @@ class BatchedP2PRunner:
                     best = (cost, arrow)
             if best is not None:
                 self.compact.arrow = best[1]
-            structure = "compact"
-            if self.compact.arrow is not None:
-                structure = "compact-arrow"
-        if structure != "compact-arrow":
-            raise NotImplementedError(
-                f"structure {structure!r}: omg_tools_torch runs the "
-                "compact-arrow structure only so far")
 
-        # the fused inner loop (K3): one kernel launch per outer round; the
-        # kernel is float32, so float64 runners keep compact-arrow, and it
-        # takes plans within its limits (``FusedPlan.kernel_refusal``: the
+        # the fused inner loop (K3): one kernel launch per outer round, on
+        # the compact-arrow structure only; the kernel is float32, so
+        # float64 runners keep compact-arrow, and it takes plans within its
+        # limits (``FusedPlan.kernel_refusal``: the
         # card's shared memory and the kernel's sizes, where the JAX
         # package gates on the TPU's VMEM).  Decided here, before any
         # launch; a plan that fails to build raises.  The plan is the one
         # selector of the path (see ``structure``): ``runner.fused_plan =
         # None`` turns a built runner to compact-arrow
         self.fused_plan = None
-        if dtype != torch.float32:
+        if self.compact is None:
+            self.structure_reason = "no compaction: " + (
+                "no quadratic structure" if self._Q_raw is None else
+                "the constraints are not affine in the parameters")
+        elif self.compact.arrow is None:
+            self.structure_reason = "no block-arrow partition"
+        elif dtype != torch.float32:
             self.structure_reason = f"{dtype}: K3 is float32"
         elif os.environ.get("OMG_DISABLE_FUSED", "0") == "1":
             self.structure_reason = "OMG_DISABLE_FUSED=1"
@@ -262,26 +309,52 @@ class BatchedP2PRunner:
 
     @property
     def structure(self):
-        """The solver structure the runner's solves take:
+        """The solver structure the runner's solves take, derived from
+        ``fused_plan``, ``compact``, ``compact.arrow`` and the detected Q:
         ``compact-arrow-fused`` while it has a fused plan, else
-        ``compact-arrow``."""
-        return "compact-arrow" if self.fused_plan is None \
-            else "compact-arrow-fused"
+        ``compact-arrow`` or ``compact`` with compacted tensors (with or
+        without a block-arrow partition), else ``quadratic`` with a Q and
+        ``generic`` without.  A fused plan without the arrow it was made
+        from raises."""
+        if self.compact is not None and self.compact.arrow is not None:
+            return "compact-arrow" if self.fused_plan is None \
+                else "compact-arrow-fused"
+        structure = "compact" if self.compact is not None else \
+            "quadratic" if self._Q_raw is not None else "generic"
+        if self.fused_plan is not None:
+            raise ValueError(
+                f"a fused plan on the {structure} structure: set "
+                "runner.fused_plan = None as well")
+        return structure
 
     def make_solver(self, alm_options):
-        """An ALM solver over this runner's compacted tensors with a custom
-        iteration budget (phase-adaptive rollouts use one per budget)."""
+        """An ALM solver for the runner's structure with a custom iteration
+        budget (phase-adaptive rollouts use one per budget): over the
+        compacted tensors, or the dense quadratic form given Q exactly when
+        nothing is compacted, or the generic mode (one replay of the
+        transcription's joint f and g a Newton step)."""
+        self.structure        # a fused plan must match the compaction
         problem = self.problem
         tr = self.tr
         return make_alm_solver(
             tr.objective, tr.constraints, tr.n_x, tr.lb, tr.ub, alm_options,
             row_scale=problem._row_scale, obj_scale=problem._obj_scale,
-            compact=self.compact, fused_plan=self.fused_plan)
+            quadratic_Q=None if self.compact is not None else self._Q_raw,
+            compact=self.compact, fused_plan=self.fused_plan,
+            fg=tr.objective_and_constraints)
 
     def consts(self):
-        """The rollout's device tensors; ``FS`` is set exactly when the
-        runner has a fused plan."""
-        if self._consts is None:
+        """The rollout's device tensors for the runner's structure: the
+        compacted ones (``FS`` set exactly when the runner has a fused
+        plan), or the dense ones (Q exactly when the runner has one, the
+        affine tensors exactly when they were found)."""
+        if self.compact is None:
+            if not isinstance(self._consts, RolloutConsts) or \
+                    (self._consts.Q is None) != (self._Q_raw is None) or \
+                    (self._consts.c0 is None) == self.affine_cA:
+                self._consts = self._dense_consts()
+            return self._consts
+        if not isinstance(self._consts, CompactConsts):
             self._consts = CompactConsts(
                 self.compact.device_tensors(self.dtype, self.device),
                 self.lb, self.ub, self.shift_M)
@@ -290,6 +363,54 @@ class BatchedP2PRunner:
                 FS=None if self.fused_plan is None else
                 self.fused_plan.shared(self.dtype, self.device))
         return self._consts
+
+    def _dense_consts(self):
+        """``RolloutConsts`` from the host float64 tensors: Q scaled by the
+        row scales (the solver's own scaled Q), the affine tensors as the
+        host AD gave them."""
+        def dev(a):
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+        Q = None
+        if self._Q_raw is not None:
+            Q = dev(np.ascontiguousarray(
+                self._Q_raw * np.asarray(self.problem._row_scale,
+                                         dtype=np.float64)[:, None, None]))
+        cA, vsel = (None,) * 6, None
+        if self.affine_cA:
+            an = self._affine_np
+            cA = tuple(dev(an[k]) for k in ("c0", "C1", "A0", "TA", "f0",
+                                            "gf"))
+            vsel = torch.as_tensor(np.asarray(an["vsel"], dtype=np.int64),
+                                   device=self.device)
+        return RolloutConsts(Q, *cA, self.lb, self.ub, self.shift_M, vsel)
+
+    def _operands(self):
+        """``operands(C, phase, p)``: the solver's keyword arguments for
+        one phase on the structure the runner has now (the fused kernel's
+        shared operands, the resolved compact tensors, or the dense Q and
+        affine c, A); raises when the consts ``C`` are not that
+        structure's."""
+        structure = self.structure
+        compact, fused_plan = self.compact, self.fused_plan
+
+        def operands(C, phase, p):
+            if (compact is None) != isinstance(C, RolloutConsts):
+                raise ValueError(
+                    f"consts of type {type(C).__name__} on the {structure} "
+                    "structure: take them from runner.consts() after "
+                    "changing the structure")
+            if compact is None:
+                if (C.Q is None) != (structure == "generic"):
+                    raise ValueError(
+                        f"the consts carry Q exactly when the structure is "
+                        f"quadratic (it is {structure})")
+                cA = None if C.c0 is None else _cA_at(C, phase, p)
+                return {"cA": cA, "Q": C.Q}
+            fs = _fused_operands(fused_plan, C, phase)
+            if fs is not None:
+                return {"fshared": fs}
+            return {"ct": resolve_phase(compact, C.CT, phase, p)}
+        return operands
 
     def _varying_param_indices(self):
         """Full-p indices of the parameters that change during a rollout
@@ -486,11 +607,8 @@ class BatchedP2PRunner:
     def init_solver_state(self, x0, p0, consts=None):
         """Batched cold solve producing the initial warm state."""
         C = consts if consts is not None else self.consts()
-        fs = _fused_operands(self.fused_plan, C, 0)
-        if fs is not None:
-            return self.solver(x0, p0, C.lb, C.ub, fshared=fs)
-        ct = resolve_phase(self.compact, C.CT, 0, p0)
-        return self.solver(x0, p0, C.lb, C.ub, ct=ct)
+        return self.solver(x0, p0, C.lb, C.ub,
+                           **self._operands()(C, 0, p0))
 
     def rollout_fn(self, n_steps, outer_iter=4, recover_tol=0.3,
                    rescue_lanes=0, rescue_outer=3, rescue_tol=1e-3,
@@ -525,14 +643,13 @@ class BatchedP2PRunner:
         The returned ``rollout(st, p, state, consts=None, on_step=None)``
         calls ``on_step(k)``, when given, after step k has been issued.
 
-        The solves go through the fused kernel when ``self.fused_plan`` is
-        set as this function is called; the consts must then carry ``FS``,
-        and must not otherwise."""
+        The solves take the structure the runner has as this function is
+        called (the fused kernel while ``self.fused_plan`` is set); the
+        consts must be that structure's."""
         spk = self.steps_per_knot
         dt = self.update_time
         solver = self.solver
-        compact = self.compact
-        fused_plan = self.fused_plan
+        operands = self._operands()
         s0, s1 = int(self.i_splines[0]), int(self.i_splines[-1]) + 1
         dev = self.device
         i_poseT = torch.as_tensor(self.i_poseT, device=dev)
@@ -563,13 +680,8 @@ class BatchedP2PRunner:
             return torch.where(mask[:, None], x_reset, x)
 
         def _solve(solver_fn, C, st_in, x_warm, p, phase, n_outer):
-            fs = _fused_operands(fused_plan, C, phase)
-            if fs is not None:
-                return solver_fn(x_warm, p, C.lb, C.ub, state0=st_in,
-                                 outer_iter=n_outer, fshared=fs)
-            ct = resolve_phase(compact, C.CT, phase, p)
             return solver_fn(x_warm, p, C.lb, C.ub, state0=st_in,
-                             outer_iter=n_outer, ct=ct)
+                             outer_iter=n_outer, **operands(C, phase, p))
 
         def solve_step(solver_fn, n_outer, C, carry, k):
             st, p, state, streak = carry
@@ -652,7 +764,7 @@ class BatchedP2PRunner:
         def rollout(st, p, state, consts: Optional[CompactConsts] = None,
                     on_step=None):
             C = consts if consts is not None else self.consts()
-            _fused_operands(fused_plan, C, 0)   # consts match the plan
+            operands(C, 0, p)                   # the structure's consts
             streak = torch.zeros(st.feas_raw.shape, dtype=torch.int32,
                                  device=st.x.device)
             states = []

@@ -5,7 +5,8 @@ Each vehicle's perceived fleet center (its position splines +
 ``rel_pos_c``) must agree with its neighbors'; the consensus runs through
 the batched ADMM engine of ``problems.admm`` with per-edge shared
 variables and terminal center-derivative stabilization in the
-z-projection.  Not ported yet: ``export`` (ROADMAP.md Queue 1, export).
+z-projection.  ``export`` writes the two-phase embedded C++ runtime
+(``export.export_formation``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,5 @@ class FormationPoint2point(ADMMProblem):
             print("%-18s %6g %%" % ("Formation error:", err * 100.0))
 
     def export(self, options=None):
-        raise NotImplementedError(
-            "the formation's C++ export is not ported to omg_tools_torch "
-            "yet (ROADMAP.md Queue 1, export)")
+        from ..export.export_formation import ExportFormation
+        return ExportFormation(self, options or {})

@@ -96,6 +96,14 @@ class Point2pointProblem(Problem):
                     "Av update time:",
                     sum(self.update_times) * 1000.0 / len(self.update_times)))
 
+    def export(self, options=None):
+        """The embedded C++ runtime's exporter of this problem: call its
+        ``run()`` to write it (float64, on the CPU)."""
+        from ..export.export_p2p import ExportP2P
+        if not hasattr(self, "father"):
+            self.init()
+        return ExportP2P(self, options or {})
+
 
 class FixedTPoint2point(Point2pointProblem):
 

@@ -87,6 +87,5 @@ class RendezVous(ADMMProblem):
         return float(np.sqrt(res)) <= 5e-2
 
     def export(self, options=None):
-        raise NotImplementedError(
-            "the rendezvous' C++ export is not ported to omg_tools_torch "
-            "yet (ROADMAP.md Queue 1, export)")
+        from ..export.export_rendezvous import ExportRendezVous
+        return ExportRendezVous(self, options or {})

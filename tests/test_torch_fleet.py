@@ -307,8 +307,9 @@ def test_fleet_needs_cuda_and_has_no_mesh(monkeypatch, formations):
     runner = FleetRunner(pt, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1, the mesh path"):
         runner.mesh_iterate_fn(2)
-    with pytest.raises(NotImplementedError, match="Queue 1, export"):
-        pt.export()
+    exporter = pt.export()
+    assert isinstance(exporter, T.ExportFormation)
+    assert type(exporter).__name__ == "ExportFormation"   # the JAX name
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FleetRunner(pt)

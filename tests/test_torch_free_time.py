@@ -44,7 +44,8 @@ import omg_tools_torch as T
 from omg_tools_torch.ops import psd_kernels as pk
 from omg_tools_torch.ops.alm import make_alm_solver
 from omg_tools_torch.problems.rollout_models import make_rollout_model
-from torch_bench_configs import _layout_rows, one_torch_thread  # noqa: F401
+from torch_bench_configs import (_layout_rows, jax_compiled,  # noqa: F401
+                                 one_torch_thread)
 import chip_smoke
 
 __all__ = ["J", "one_torch_thread", "test_transcription_matches_jax",
@@ -140,7 +141,7 @@ def _problems(J, case):
             problem = CASES[case](m)
             problem.set_options({"verbose": 0, **options})
             problem.init()
-            out.append(problem)
+            out.append(jax_compiled(problem) if m is J else problem)
         _BUILT[case] = tuple(out)
     return _BUILT[case]
 

@@ -27,6 +27,7 @@ import torch
 import omg_tools_torch as T
 from omg_tools_torch.ops import fused_alm as fa
 from omg_tools_torch.ops.compact import resolve_phase
+from torch_bench_configs import jax_compiled
 
 B = 4
 N_STEPS = 11        # covers the knot-passage (hard budget) step at k = 10
@@ -94,7 +95,7 @@ def pair(tmp_path_factory):
     try:
         jp = _build_problem(J)
         jp.init()
-        jr = JRunner(jp, dtype=jnp.float64,
+        jr = JRunner(jax_compiled(jp), dtype=jnp.float64,
                      alm_options=JALMOptions(inner_iter=5))
     finally:
         if old is None:

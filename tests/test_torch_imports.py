@@ -288,6 +288,54 @@ def test_subprocess_builds_gcode_svg_and_central_formation_without_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+# the export path as on the card's machine: ExportP2P of a small scene
+# written (host float64, no card), and the five example copies of the
+# batched runner and the exports imported (their work is in ``main()``)
+_CHILD_EXPORT = r"""
+import importlib.abc, importlib.util, json, os, sys, tempfile
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import omg_tools_torch as T
+vehicle = T.Holonomic()
+vehicle.set_initial_conditions([-1.5, -1.5])
+vehicle.set_terminal_conditions([2.0, 2.0])
+problem = T.Point2point(vehicle, T.Environment(room={"shape": T.Square(5.0)}),
+                        freeT=False)
+problem.set_options({"verbose": 0})
+problem.init()
+with tempfile.TemporaryDirectory() as out:
+    problem.export({"directory": out}).run()
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert manifest["scalars"]["n_x"] == problem.transcription.n_x
+    assert os.path.exists(os.path.join(out, "Makefile"))
+for name in ("batched_p2p_tpu", "p2p_holonomic_export",
+             "p2p_holonomic_obstraj_export", "formation_holonomic_export",
+             "rendezvous_holonomic_export"):
+    spec = importlib.util.spec_from_file_location(
+        "example_" + name, os.path.join("examples_torch", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert callable(module.main)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_exports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD_EXPORT % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -41,6 +41,7 @@ from omg_tools_torch.ops.compact import resolve_phase
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 import chip_smoke  # noqa: E402  phase 16's moving circle
+from torch_bench_configs import jax_compiled  # noqa: E402
 
 B = 4
 N_STEPS = 11        # covers the knot-passage (hard budget) step at k = 10
@@ -83,7 +84,7 @@ def pair(tmp_path_factory):
     try:
         jp = _build_problem(J)
         jp.init()
-        jr = JRunner(jp, dtype=jnp.float64,
+        jr = JRunner(jax_compiled(jp), dtype=jnp.float64,
                      alm_options=JALMOptions(inner_iter=5))
     finally:
         if old is None:

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 import omg_tools_torch as T
-from torch_bench_configs import one_torch_thread  # noqa: F401
+from torch_bench_configs import jax_compiled, one_torch_thread  # noqa: F401
 import chip_smoke
 
 B = 8
@@ -82,7 +82,7 @@ def runners(tmp_path_factory):
     try:
         jp = chip_smoke.build_scene(J, "obstraj")
         jp.init()
-        jr = JRunner(jp, dtype=jnp.float64,
+        jr = JRunner(jax_compiled(jp), dtype=jnp.float64,
                      alm_options=JALMOptions(inner_iter=5))
     finally:
         if old is None:

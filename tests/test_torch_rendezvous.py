@@ -199,10 +199,11 @@ def test_meeting_consensus_converges(initialized):
     assert pt.residuals[-1][0] < 0.5 * pt.residuals[0][0]
 
 
-def test_export_is_not_ported(initialized):
+def test_export_returns_the_rendezvous_exporter(initialized):
     pt = initialized["meeting"][1]
-    with pytest.raises(NotImplementedError, match="Queue 1, export"):
-        pt.export()
+    exporter = pt.export()
+    assert isinstance(exporter, T.ExportRendezVous)
+    assert type(exporter).__name__ == "ExportRendezVous"  # the JAX name
     assert not pt.device_loop_capable and pt._runner is None
 
 

@@ -198,6 +198,7 @@ def test_cold_solve(case, criteria):
     own criteria on the stored trajectory; and the default generic mode's
     first 10 Newton iterations against the JAX package's from the same
     start: x within 1e-8."""
+    import jax
     import jax.numpy as jnp
     from omg_tools_tpu.ops.alm import ALMOptions as JALMOptions
     from omg_tools_tpu.ops.alm import make_alm_solver as j_make_alm_solver
@@ -225,8 +226,10 @@ def test_cold_solve(case, criteria):
     ts = make_alm_solver(ta.objective, ta.constraints, ta.n_x, ta.lb, ta.ub,
                          T.ALMOptions(**FIRST_ITERS),
                          row_scale=tp._row_scale, obj_scale=tp._obj_scale)
-    js = j_make_alm_solver(ja.objective, ja.constraints, ja.n_x, ja.lb,
-                           ja.ub, JALMOptions(**FIRST_ITERS),
+    # the JAX functions compiled: traced once, not replayed op by op in
+    # every trace of the solver's loops
+    js = j_make_alm_solver(jax.jit(ja.objective), jax.jit(ja.constraints),
+                           ja.n_x, ja.lb, ja.ub, JALMOptions(**FIRST_ITERS),
                            row_scale=jp._row_scale, obj_scale=jp._obj_scale)
     got = ts(torch.as_tensor(x0)[None], torch.as_tensor(P)[None], lb, ub)
     want = js(jnp.asarray(x0), jnp.asarray(P), jnp.asarray(lb),

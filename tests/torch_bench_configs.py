@@ -100,6 +100,19 @@ def _layout_rows(layout, table):
             for (lbl, name), blk in getattr(layout, table).items()]
 
 
+def jax_compiled(problem):
+    """A JAX package problem, initialised, with its transcription's
+    constraints and objective compiled by ``jax.jit``: the same functions,
+    traced once instead of replayed op by op at every later call (host AD,
+    solver traces, evaluations), where a replay of these scenes takes
+    seconds.  Returns the problem."""
+    import jax
+    tr = problem.transcription
+    tr.constraints = jax.jit(tr.constraints)
+    tr.objective = jax.jit(tr.objective)
+    return problem
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """These eager solves are small: torch's intra-op threads only spin
@@ -148,7 +161,7 @@ def jax_pair(config, tmp_path_factory):
     old = os.environ.get("OMG_CACHE_DIR")
     os.environ["OMG_CACHE_DIR"] = str(tmp_path_factory.mktemp("jax_cache"))
     try:
-        jp = chip_smoke.build_problem(J, config)
+        jp = jax_compiled(chip_smoke.build_problem(J, config))
         jr = JRunner(jp, dtype=jnp.float64, alm_options=JALMOptions(
             inner_iter=chip_smoke.INNER_ITER, rho_init=10.0))
     finally:
