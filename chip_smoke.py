@@ -70,9 +70,9 @@ Phases, in order; any failure raises and exits non-zero:
     in the default generic mode on a cut budget (its Newton steps CUDA
     graphs, ``ops.alm``), every solver call's iterate within 1e-8 of the
     quadratic mode's on that budget; K1 (float64, one 151-row system a
-    launch) must run in every update; then
+    launch) must run in every update; and
     ``examples_torch/p2p_holonomic.py`` in smoke mode in a process of its
-    own;
+    own, beside 11's CPU solves;
 13. the other bench configurations, ``p2p_3dquadrotor`` and ``p2p_dubins``
     (bench.py:233-345), each on an empty host-tensor cache of its own:
     setup (the float32 runner must take ``compact-arrow-fused``; its
@@ -102,8 +102,8 @@ Phases, in order; any failure raises and exits non-zero:
     float64 at 4 x 85, launches counted), and that run's Z after 2
     iterations within 2 cm of the port's float64 run on the CPU from the
     same carry, beside the CPU run's own sensitivity to a 1e-15
-    perturbation; then ``examples_torch/formation_holonomic.py`` in smoke
-    mode in a process of its own;
+    perturbation; with ``examples_torch/formation_holonomic.py`` in
+    smoke mode in a process of its own beside the float64 runs;
 16. the examples' free-time and rotating-obstacle closed loops in float64
     on the card (``scene_loop``): p2p_dubins and p2p_bicycle
     (``FreeTPoint2point``) and revolving_door (a rectangle rotating at
@@ -120,7 +120,8 @@ Phases, in order; any failure raises and exits non-zero:
     per-scenario velocity (``make_batch(obstacle_states=)``: K3 must run,
     K1 and K2 not) and of the obstraj example's spline-trajectory circle
     (whatever structure K3's limits give it: ``compact-arrow``, its head
-    has 105 rows), each with the cross-check of 11 on 16 lanes;
+    has 105 rows; 11 steps, to its first knot passage), each with the
+    cross-check of 11 on 16 lanes;
 17. the vast-environment closed loops in float64 on the card
     (``vast_phase``): the scenes of examples/test_multiframe.py (a
     MultiFrameProblem over two rooms, n_x 120), schedulerproblem_example1.py
@@ -178,7 +179,8 @@ Phases, in order; any failure raises and exits non-zero:
     the cache that a one-thread process of this script filled,
     ``StructuresReference``, started after phase 7's timed rollouts,
     which times the cold setup apart): a
-    B = 1024, 20-step rollout at bench.py's settings for it (inner 8,
+    B = 1024, 12-step rollout (bench.py's 20 cut to the first knot
+    passage and a step after it) at bench.py's settings for it (inner 8,
     budgets 4x10/2x8, 256 rescue lanes x 8 outer rounds, recover_tol 0.01
     raw), its steps timed by CUDA events, the CUDA-graph captures after
     every step (none after the first step of each budget class and of the
@@ -196,14 +198,38 @@ Phases, in order; any failure raises and exits non-zero:
     bench scene from a float64 runner on the card and on the CPU, the
     directories byte-identical, and where the machine has g++ and make
     the harness built and run (``./test .``: PASSED); within 150 s;
-15. times (after 19 and 8): the device time of K1 and K2 at every shape of 3
+21. the fleet mesh path and the multi-host layer on one rank
+    (``mesh_phase``), in one process group (NCCL, gloo beside it for the
+    CPU, 127.0.0.1 at a free port, a 120 s timeout), destroyed at the
+    phase's end: (a) phase 14's formation on a one-rank ``"fleet"`` mesh
+    in float32, ``FleetRunner.mesh_iterate_fn(20)`` through ``prepare``
+    and ``run_placed`` (median of 3 after a warm run) and
+    ``mesh_rollout_fn(20)`` from the iterated state: ADMM iterations/s,
+    rollout periods/s, consensus_rms_m < 0.02 with the last primal
+    residual below the first, the rollout finite, every vehicle nearer its
+    goal and its last primal residual < 0.1, K1 only (K2 and K3 not
+    launched, no library Cholesky kernel in a traced iteration), the
+    collective counts (all-reduces and all-gathers > 0; no p2p on one
+    rank); (b) the multi-host launcher's hybrid update
+    (``make_hybrid_dual_update``, outer_iter 1) on a (1, 1) hybrid mesh
+    for 256 identical instances of that formation, 3 iterations, K1 at
+    1,024 x 85: finite, the instances equal, instance 0 against the four
+    vehicles' own ``make_mesh_dual_update`` within 4x that update's move
+    under a float32-rounding move of its start; (c) ``mesh_iterate_fn(2)``
+    in float64 on the cut budget (2 x 4) on the card and on a CPU mesh
+    from the card's cold solves, Z within 2 cm, beside the CPU's own move
+    under a 1e-15 move of that start; with
+    ``examples_torch/fleet_mesh_admm_tpu.py`` in a process of its own
+    beside the phase; within 75 s;
+15. times (after 21 and 8): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
     6 and of each plan of 13, and K1's in float64 at the closed loop's
     shape (1 x 151), at the formation's (4 x 85), at phase 16's, 17's
     and 18's (1 x n_x), at phase 19's x-updates (B x n_x), in float32
-    at phase 20's (1024 x 190, 256 x 190, 4096 x 151) and of K1's
+    at phase 20's (1024 x 190, 256 x 190, 4096 x 151) and 21's
+    (1024 x 85) and of K1's
     global variant and of K1 at the G-code window (1 x 50) at the shapes
     of 3; taken last, so that no profiler
     session but 9's (and 14's trace) precedes the timed runs.
@@ -216,7 +242,9 @@ phases 1-3 (the checks), 16 and its K1 device times, and stops;
 and ``--distributed-only`` with phase 19 (each prints its kernels line,
 no final line).  ``--structures-only`` runs phases 1-3, 4, 10 (on the
 fused runner's cold solve) and 20, then phase 20's K1 device times, and
-prints its kernels line (no final line).
+prints its kernels line (no final line).  ``--mesh-only`` runs phases 1-3
+and 21 (on phase 14's scene, built for it), K1's device times at 4 x 85
+and 1,024 x 85, and prints its kernels line (no final line).
 
 The line before the ``kernels`` JSON object gives the script's wall time
 (``elapsed``, the build included); the last two lines before the final
@@ -416,6 +444,10 @@ DIST_PHASE_BUDGET_S = 150.0
 # byte-identical; the harness built and run where the machine has g++ and
 # make.  Within STRUCT_PHASE_BUDGET_S, its setup from the warm cache
 STRUCT_BATCH = 1024
+# (a)'s depth, cut from bench.py's 20 steps to keep the script within 900 s
+# with phase 21: the knot passage (k = 10, the hard budget's first step)
+# and one easy step after it, whose capture count is checked
+STRUCT_STEPS = 12
 STRUCT_INNER = 8
 STRUCT_ROLLOUT = dict(outer_iter=2, rescue_lanes=256, rescue_outer=8,
                       recover_tol=0.01, recover_metric="raw",
@@ -441,6 +473,45 @@ F32_PERTURB = 1e-6
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
 # uniform), and the obstraj example's spline-trajectory circle
 OBSTACLE_SPEED_MAX = 0.2
+# the obstraj rollout's depth (compact-arrow, ~0.6-0.7 s a step), cut from
+# 20 to keep the script within 900 s with phase 21: the knot passage
+# (k = 10) is its last step
+OBSTRAJ_STEPS = 11
+
+# phase 21: the fleet mesh path and the multi-host layer on one rank (one
+# process group: NCCL, gloo beside it for the CPU, 127.0.0.1, a 120 s
+# timeout).  (a) phase 14's formation on a one-rank "fleet" mesh in
+# float32: mesh_iterate_fn(20) timed as bench.py times it (median of 3
+# after a warm run), mesh_rollout_fn(20) from the iterated state;
+# consensus_rms_m < 0.02 m with the last primal residual below the first,
+# the rollout finite, every vehicle nearer its goal, its last primal
+# residual < 0.1 (tests/test_fleet_runner.py:164); K1 only.  (b) the
+# hybrid update of the multi-host launcher (outer_iter 1) on a (1, 1)
+# hybrid mesh for HYBRID_B identical instances of (a)'s formation: one
+# batched x-update of HYBRID_B * 4 lanes (K1 at 1,024 x 85), 3 iterations;
+# finite, identical instances equal, instance 0 against the four vehicles'
+# own make_mesh_dual_update within 4x that update's move under a
+# float32-rounding move of its start, or 16 float32 epsilons of its
+# largest |Z|.  (c) mesh_iterate_fn(2) in float64 on the cut budget on the
+# card and on the CPU (gloo) from the card's cold solves, Z within
+# FLEET_PARITY_M, beside the CPU's own move under F64_PERTURB; the example
+# copy examples_torch/fleet_mesh_admm_tpu.py in a process of its own beside
+# the phase
+MESH_ITERS = ADMM_ITERS
+MESH_STEPS = FLEET_STEPS
+MESH_TIMED_RUNS = 3
+MESH_ROLLOUT_PRI_GATE = 0.1
+MESH_CUT_BUDGET = {"outer_iter": 2, "inner_iter": 4}
+MESH_CPU_ITERS = 2
+HYBRID_B = 256
+HYBRID_OUTER = 1
+HYBRID_ITERS = 3
+HYBRID_SAME_REL = 1e-6
+HYBRID_SPREAD_FACTOR = 4.0
+HYBRID_EPS_FLOOR = 16
+MESH_PHASE_BUDGET_S = 75.0
+# library kernels that must not appear in the mesh path's trace
+LIBRARY_CHOLESKY = ("potrf", "potrs", "cusolver", "magma", "trsm")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
 # cores and the f64 rate through them (IEEE float64; 34e12 outside them):
@@ -490,8 +561,10 @@ K1_GLOBAL_SHAPES = (("scheduler_maze", (1, 178, "float64")),
 # right-hand side rides as a row, 51 <= 64), with the variant it must take
 K1_REG_SHAPES = (("gcode_window", (1, 50, "float64"), "reg64"),)
 # K1 at the formation's x-update: the generic mode's Newton system of the
-# four vehicles' template (n_x = 85), one system a lane
+# four vehicles' template (n_x = 85), one system a lane; and at phase 21's
+# hybrid update, HYBRID_B instances of four vehicles in one batched solve
 K1_FLEET_NAME = "K1 chol_solve r=1 (psd_solve), formation x-update"
+K1_HYBRID_NAME = "K1 chol_solve r=1 (psd_solve), hybrid fleet update"
 # K1 float64 at phase 19's x-updates (B vehicles of a group, n_x rows)
 K1_DIST_NAME = "K1 chol_solve r=1 (psd_solve) float64, x-update"
 K1_FLEET_SHAPE = (4, 85, 1)
@@ -1451,15 +1524,27 @@ def closed_loop_phase(device):
 
 def example_phase(*scripts):
     """``examples_torch/<script>`` in smoke mode (two updates), each in a
-    process of its own on the card, all started together (by default
-    ``p2p_holonomic.py``); ``seconds`` is each process's own wall time."""
+    process of its own on the card, all started together; ``seconds`` is
+    each process's own wall time."""
+    finish_examples(start_examples(*scripts))
+
+
+def start_examples(*scripts):
+    """Start ``examples_torch/<script>`` in smoke mode, each in a process
+    of its own; :func:`finish_examples` waits for them."""
     procs = []
-    for script in scripts or ("p2p_holonomic.py",):
+    for script in scripts:
         path = os.path.join("examples_torch", script)
         procs.append((path, time.time(), subprocess.Popen(
             [sys.executable, os.path.join(HERE, path)],
             env={**os.environ, "OMG_SMOKE": "1"}, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, cwd=HERE)))
+    return procs
+
+
+def finish_examples(procs):
+    """Wait for the processes of :func:`start_examples`, print one
+    ``example`` line each and fail on a non-zero exit."""
     try:
         for path, t0, proc in procs:
             stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
@@ -1475,11 +1560,12 @@ def example_phase(*scripts):
                 proc.wait()
 
 
-def build_formation(T, device):
+def build_formation(T, device, solver_options=None):
     """bench.py's formation_holonomic scene (bench.py:136-157): four
     Holonomic vehicles on a 0.2 m square formation from (-1.5, -1.5) to
     (2, 2), a 5 m room, a 0.4 m circle at (1.5, 0.5), 10 s horizon, rho
-    0.5, the host loop off (the runners below drive the device loop)."""
+    0.5, the host loop off (the runners below drive the device loop); the
+    template's x-update budget cut to ``solver_options`` where given."""
     from omg_tools_torch.environment.shapes import RegularPolyhedron
     vehicles = [T.Holonomic() for _ in range(FLEET_N)]
     fleet = T.Fleet(vehicles)
@@ -1495,7 +1581,9 @@ def build_formation(T, device):
     problem = T.FormationPoint2point(
         fleet, env, options={"horizon_time": 10, "verbose": 0,
                              "rho": FLEET_RHO, "device_loop": False,
-                             "device": device})
+                             "device": device,
+                             **({"solver_options": solver_options}
+                                if solver_options else {})})
     problem.init()
     return problem, np.array([2.0, 2.0]) + configuration
 
@@ -1689,7 +1777,30 @@ def formation_phase(T, device):
     newton = newton_timing(runner, carry_w)
     _trace_admm_iteration(runner, carry_w)
 
-    # float64 on the card from its own cold state; K1 in float64 at 4 x 85
+    # the example, in a process of its own beside the float64 checks (no
+    # time is taken there)
+    examples = start_examples("formation_holonomic.py")
+    try:
+        k1_f64, err32, err_cpu = formation_f64_checks(problem, carry_w,
+                                                      device)
+    finally:
+        finish_examples(examples)
+    check(err32 < FLEET_PARITY_M, f"float32 vs float64 Z: {err32} m")
+    check(err_cpu < FLEET_PARITY_M, f"card vs CPU float64 Z: {err_cpu} m")
+    return (launches, line["k1_launches_per_admm_iteration"], newton, k1_f64,
+            (problem, goals))
+
+
+def formation_f64_checks(problem, carry_w, device):
+    """Phase 14's float64 runs: on the card from its own cold state (K1 in
+    float64 at 4 x 85, launches counted), its Z after ADMM_ITERS
+    iterations against the float32 run's (``carry_w``), and after
+    FLEET_CPU_ITERS against the port's float64 run on the CPU from the
+    same carry, beside the CPU run's own sensitivity to a 1e-15
+    perturbation.  Returns (K1 launches, the two Z differences)."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.parallel import FleetRunner
     kernel_phase_f64(K1_FLEET_NAME, "psd_solve", *K1_FLEET_SHAPE, device,
                      timed=False, shape="formation")
     runner64 = FleetRunner(problem, dtype=torch.float64,
@@ -1724,12 +1835,291 @@ def formation_phase(T, device):
                   "cpu_sensitivity_1e-15": sens, "cpu_s": cpu_s,
                   "k1_f64_launches": k1_f64, "tol_m": FLEET_PARITY_M}
     print("formation_check " + json.dumps(check_line), flush=True)
-    check(err32 < FLEET_PARITY_M, f"float32 vs float64 Z: {err32} m")
-    check(err_cpu < FLEET_PARITY_M, f"card vs CPU float64 Z: {err_cpu} m")
+    return k1_f64, err32, err_cpu
 
-    # the example, in a process of its own
-    example_phase("formation_holonomic.py")
-    return launches, line["k1_launches_per_admm_iteration"], newton, k1_f64
+
+def mesh_loops(device, problem, goals, mesh):
+    """Phase 21 (a): mesh_iterate_fn(MESH_ITERS) of phase 14's formation
+    on the one-rank fleet mesh in float32, through ``prepare`` and
+    ``run_placed``, timed as bench.py times it, then mesh_rollout_fn from
+    the iterated state; one iteration traced (K1's kernel, no library
+    Cholesky).  Returns the formation_mesh line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.parallel import FleetRunner, fleet_mesh
+    runner = FleetRunner(problem, dtype=torch.float32,
+                         outer_iter=FLEET_OUTER, device=device, mesh=mesh)
+    g = problem.groups[0]
+    X0, P0 = g.X, problem._pack_params(g, 0.0)
+    it = runner.mesh_iterate_fn(MESH_ITERS)
+    placed = it.prepare(X0, P0, problem.Z, problem.L)
+    zero_launch_counts()
+    fleet_mesh.collectives.update(p2p=0, all_reduce=0, all_gather=0)
+    it.run_placed(placed)                       # warm run
+    times = []
+    for _ in range(MESH_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (X, Z, L), (pri, dua) = it.run_placed(placed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    run_s = float(np.median(times))
+    k1_iterate = pk.psd_solve.launches
+    collectives_iterate = dict(fleet_mesh.collectives)
+    roll = runner.mesh_rollout_fn(MESH_STEPS)
+    placed_r = roll.prepare(X, P0, Z, L)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, (rpri, rdua, states) = roll.run_placed(placed_r)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    counts = launch_counts()
+    collectives = dict(fleet_mesh.collectives)
+    by_systems = k1_launches_by_systems()
+    # one iteration traced: the card's kernels
+    one = runner.mesh_iterate_fn(1)
+    placed_1 = one.prepare(X0, P0, problem.Z, problem.L)
+    one.run_placed(placed_1)
+    untraced_ms = timed_call_ms(lambda: one.run_placed(placed_1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one.run_placed(placed_1)
+        torch.cuda.synchronize()
+    kernel_us, names = 0.0, set()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("alm."):
+            kernel_us += e.self_device_time_total
+            names.add(e.key)
+    library = sorted(n for n in names
+                     if any(m in n.lower() for m in LIBRARY_CHOLESKY))
+    pri = pri.cpu().numpy().astype(np.float64)
+    dua = dua.cpu().numpy().astype(np.float64)
+    rpri = rpri.cpu().numpy().astype(np.float64)
+    states = states.cpu().numpy().astype(np.float64)
+    consensus_rms_m = float(pri[-1] / np.sqrt(2 * runner.N * runner.n_sh))
+    d0 = np.linalg.norm(states[:, 0] - goals, axis=1)
+    d1 = np.linalg.norm(states[:, -1] - goals, axis=1)
+    n_iter = (1 + MESH_TIMED_RUNS) * MESH_ITERS
+    line = {
+        "metric": "formation_holonomic_mesh_admm_iterations_per_s",
+        "value": MESH_ITERS / run_s, "unit": "iterations/s",
+        "ranks": mesh.size(), "fleet_n": runner.N,
+        "run_s_runs": times, "run_s": run_s,
+        "residual_curve_pri": pri.tolist(),
+        "residual_curve_dua": dua.tolist(),
+        "consensus_rms_m": consensus_rms_m,
+        "rollout_periods_per_s": MESH_STEPS / roll_s, "rollout_s": roll_s,
+        "rollout_pri": rpri.tolist(),
+        "goal_distance_start": d0.tolist(), "goal_distance_end": d1.tolist(),
+        "k1_launches": counts["psd_solve"],
+        "k1_launches_per_admm_iteration": k1_iterate / n_iter,
+        "k1_launches_by_systems": by_systems,
+        "collectives_iterate": collectives_iterate,
+        "collectives": collectives,
+        "collectives_per_admm_iteration": {
+            k: v / n_iter for k, v in collectives_iterate.items()},
+        "traced_iteration": {"untraced_ms": untraced_ms,
+                             "device_kernel_ms": kernel_us / 1e3,
+                             "device_busy_share":
+                                 kernel_us / 1e3 / untraced_ms,
+                             "k1_kernel": sorted(
+                                 n[:60] for n in names if CHOL_KERNEL in n),
+                             "library_cholesky": library}}
+    print("formation_mesh " + json.dumps(line), flush=True)
+    check(bool(np.isfinite(pri).all() and np.isfinite(states).all()
+               and np.isfinite(rpri).all()),
+          "non-finite mesh residuals or states")
+    check(consensus_rms_m < CONSENSUS_GATE_M,
+          f"mesh consensus rms {consensus_rms_m} m")
+    check(pri[-1] < pri[0], f"mesh primal residual {pri[0]} -> {pri[-1]}")
+    check(bool((d1 < d0).all()), f"mesh rollout: no progress {d0} -> {d1}")
+    check(rpri[-1] < MESH_ROLLOUT_PRI_GATE,
+          f"mesh rollout's last primal residual {rpri[-1]}")
+    check(counts["psd_solve"] > 0 and counts["psd_solve_multi"] == 0
+          and counts["fused_inner"] == 0, f"the mesh path launched {counts}")
+    check(line["traced_iteration"]["k1_kernel"] and not library,
+          f"the traced mesh iteration ran {library}, K1 "
+          f"{line['traced_iteration']['k1_kernel']}")
+    check(collectives["all_reduce"] > 0 and collectives["all_gather"] > 0
+          and collectives["p2p"] == 0, f"collectives {collectives}")
+    return line
+
+
+def hybrid_update(device, problem, mesh):
+    """Phase 21 (b): the multi-host launcher's hybrid update on a (1, 1)
+    hybrid mesh for HYBRID_B identical instances of phase 14's formation,
+    HYBRID_ITERS iterations, each timed; against the four vehicles' own
+    make_mesh_dual_update on ``mesh``.  Returns the hybrid line."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    from omg_tools_torch.parallel import (hybrid_mesh,
+                                          make_hybrid_dual_update,
+                                          make_mesh_dual_update,
+                                          shard_hybrid_state)
+    hmesh = hybrid_mesh(device=device)
+    check(tuple(hmesh.shape) == (1, 1), f"hybrid mesh {hmesh}")
+    step, rel = make_hybrid_dual_update(problem, hmesh,
+                                        outer_iter=HYBRID_OUTER)
+    g = problem.groups[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    start = [torch.as_tensor(a, **f32) for a in (
+        g.X, problem._pack_params(g, 0.0), problem.Z, problem.L, rel)]
+    X, Pp, Z, L, relb = shard_hybrid_state(hmesh, *(
+        a.expand((HYBRID_B,) + tuple(a.shape)).contiguous() for a in start))
+    k1_before = pk.psd_solve.launches
+    times = []
+    for _ in range(HYBRID_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, Z, L, pri, dua = step(X, Pp, Z, L, relb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    k1 = pk.psd_solve.launches - k1_before
+    Xh = X.reshape(HYBRID_B, -1).double()
+    Zh = Z.reshape(HYBRID_B, -1).double()
+    same_bits = bool((Xh == Xh[:1]).all() and (Zh == Zh[:1]).all())
+    same_rel = float((Xh - Xh[:1]).abs().max() / Xh[:1].abs().max())
+
+    # instance 0 against the four vehicles alone, and that run's move
+    # under a float32-rounding move of its start
+    alone = make_mesh_dual_update(problem, mesh, outer_iter=HYBRID_OUTER)
+
+    def run_alone(X0):
+        Xa, Za, La = X0, start[2], start[3]
+        for _ in range(HYBRID_ITERS):
+            Xa, Za, La, _, _ = alone(Xa, start[1], Za, La)
+        return Xa.double(), Za.double()
+    Xa, Za = run_alone(start[0])
+    eps = float(torch.finfo(torch.float32).eps)
+    sens = 0.0
+    gen = torch.Generator(device=device).manual_seed(0)
+    for _ in range(2):
+        noise = torch.randn(start[0].shape, generator=gen, **f32)
+        sens = max(sens, float((run_alone(start[0] * (1 + eps * noise))[1]
+                                - Za).abs().max()))
+    err = float((Z[0].double() - Za).abs().max())
+    tol = max(HYBRID_SPREAD_FACTOR * sens,
+              HYBRID_EPS_FLOOR * eps * float(Za.abs().max()))
+    line = {"B": HYBRID_B, "vehicles": HYBRID_B * problem.N,
+            "mesh": {n: int(s) for n, s in zip(hmesh.mesh_dim_names,
+                                               hmesh.shape)},
+            "outer_iter": HYBRID_OUTER, "iterations": HYBRID_ITERS,
+            "iteration_s": times, "k1_launches": k1,
+            "k1_launches_by_systems": k1_launches_by_systems(),
+            "pri": float(pri), "dua": float(dua),
+            "instances_equal_bitwise": same_bits,
+            "instances_max_rel_diff": same_rel,
+            "instance0_vs_alone_Z_m": err,
+            "alone_float32_sensitivity_Z_m": sens, "tol_m": tol}
+    print("hybrid " + json.dumps(line), flush=True)
+    check(bool(torch.isfinite(X).all() and torch.isfinite(Z).all()
+               and torch.isfinite(L).all()), "non-finite hybrid update")
+    check(same_rel <= HYBRID_SAME_REL,
+          f"identical instances differ by {same_rel} (relative)")
+    check(err <= tol, f"instance 0 vs the fleet alone: {err} m > {tol} m")
+    check(k1_launches_by_systems().get(str(HYBRID_B * problem.N), 0) > 0,
+          f"no K1 launch at {HYBRID_B * problem.N} systems")
+    return line
+
+
+def mesh_card_vs_cpu(T, device, mesh):
+    """Phase 21 (c): mesh_iterate_fn(MESH_CPU_ITERS) in float64 on the
+    cut budget on the one-rank CUDA mesh and on a one-rank CPU mesh
+    (gloo), from the same cold state (the card's cold solves of
+    ``make_state``: from the straight-line guess, where rows sit on their
+    bounds, the CPU's own Z moves by centimetres under F64_PERTURB); Z's
+    largest difference beside the CPU's own move when its start moves by
+    F64_PERTURB."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from omg_tools_torch.parallel import FleetRunner
+    problem, _ = build_formation(T, device, solver_options=MESH_CUT_BUDGET)
+    cuda = FleetRunner(problem, dtype=torch.float64, outer_iter=FLEET_OUTER,
+                       device=device, mesh=mesh)
+    carry = cuda.make_state(0.0)
+    start = tuple(a.cpu() for a in (carry.st[0].x, carry.Pp[0], carry.Z,
+                                    carry.L))
+    (_, Zg, _), (pri, _) = cuda.mesh_iterate_fn(MESH_CPU_ITERS)(*start)
+    mesh_cpu = init_device_mesh("cpu", (1,), mesh_dim_names=("fleet",))
+    cpu = FleetRunner(problem, dtype=torch.float64, outer_iter=FLEET_OUTER,
+                      device="cpu", mesh=mesh_cpu)
+    t0 = time.time()
+    (_, Zc, _), _ = cpu.mesh_iterate_fn(MESH_CPU_ITERS)(*start)
+    cpu_s = time.time() - t0
+    rng = np.random.default_rng(0)
+    moved = start[0] * (1.0 + F64_PERTURB * torch.as_tensor(
+        rng.standard_normal(tuple(start[0].shape))))
+    (_, Zm, _), _ = cpu.mesh_iterate_fn(MESH_CPU_ITERS)(moved, *start[1:])
+    err = float((Zg.cpu() - Zc).abs().max())
+    sens = float((Zm - Zc).abs().max())
+    line = {"f64_card_vs_cpu_Z": err, "iterations": MESH_CPU_ITERS,
+            "budget": MESH_CUT_BUDGET, "cpu_sensitivity_1e-15": sens,
+            "cpu_s": cpu_s, "pri": pri.cpu().numpy().tolist(),
+            "tol_m": FLEET_PARITY_M}
+    print("mesh_check " + json.dumps(line), flush=True)
+    check(bool(torch.isfinite(Zg).all()), "non-finite float64 mesh Z")
+    check(err < FLEET_PARITY_M, f"mesh card vs CPU float64 Z: {err} m")
+    return line
+
+
+def mesh_phase(T, device, formation):
+    """Phase 21: the fleet mesh path and the multi-host layer on one rank
+    (``mesh_loops``, ``hybrid_update``, ``mesh_card_vs_cpu``) in one
+    process group, destroyed at the phase's end, and the example copy.
+    ``formation``: phase 14's (problem, goals).  Returns K1's launches
+    over (a) and (b) by the number of systems a launch solved, and the
+    phase's lines."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from omg_tools_torch.parallel import fleet_mesh
+    t0 = time.time()
+    check(fleet_mesh.one_rank_group(device),
+          "a process group existed before phase 21")
+    # the example copy beside the phase: its process spends its first ~20 s
+    # on the host (imports, the template's build) while (a) replays its
+    # graphs, which keep the card busy
+    examples = start_examples("fleet_mesh_admm_tpu.py")
+    try:
+        mesh = init_device_mesh(device.type, (1,),
+                                mesh_dim_names=("fleet",))
+        loops = mesh_loops(device, *formation, mesh)
+        hybrid = hybrid_update(device, formation[0], mesh)
+        by_systems = k1_launches_by_systems()
+        card_cpu = mesh_card_vs_cpu(T, device, mesh)
+    finally:
+        try:
+            finish_examples(examples)
+        finally:
+            dist.destroy_process_group()
+    seconds = time.time() - t0
+    print("mesh_phase " + json.dumps(
+        {"seconds": seconds, "budget_s": MESH_PHASE_BUDGET_S}), flush=True)
+    check(seconds <= MESH_PHASE_BUDGET_S,
+          f"phase 21 took {seconds} s > {MESH_PHASE_BUDGET_S} s")
+    return {"k1_by_systems": by_systems, "loops": loops, "hybrid": hybrid,
+            "card_vs_cpu": card_cpu}
+
+
+def mesh_records(device, mesh):
+    """Phase 15's record of K1 at the hybrid update's shape (float32,
+    HYBRID_B * 4 systems of 85 rows), with its launches in (b)."""
+    N = HYBRID_B * FLEET_N
+    n = mesh["hybrid"]["k1_launches_by_systems"]
+    line = kernel_phase_f64(K1_HYBRID_NAME, "psd_solve", N, K1_FLEET_SHAPE[1],
+                            1, device, timed=True, shape="hybrid",
+                            dtype="float32")
+    check(line["variant"] == "block",
+          f"K1 hybrid: {N} x 85 takes {line['variant']}, not block")
+    return [("psd_solve", {
+        "name": K1_HYBRID_NAME, "route": "cuda", "source": SOURCE,
+        "replaces": KERNELS[0][2], "launches": n.get(str(N), 0),
+        "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+        "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+        "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+        "call_ms": line["call_ms"], "variant": line["variant"],
+        "shape": [N, K1_FLEET_SHAPE[1], 1], "dtype": "float32"})]
 
 
 class recorded_solves:
@@ -2472,7 +2862,7 @@ def generic_phase(T, device, reference):
           f"exact Dubins float32: structure {runner.structure} "
           f"({runner.structure_reason}), not generic")
     n_x, n_g = runner.n_x, runner.tr.n_g
-    roll = runner.rollout_fn(N_STEPS, **STRUCT_ROLLOUT)
+    roll = runner.rollout_fn(STRUCT_STEPS, **STRUCT_ROLLOUT)
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     c0 = CapturedCall.captures
@@ -2505,13 +2895,13 @@ def generic_phase(T, device, reference):
     # a capture is due at the first step of each budget class (and its
     # rescue): the easy budget's at k = 0, the hard one's at the first
     # knot passage; none after
-    first = {0, spk} if N_STEPS > spk else {0}
-    late = [k for k in range(1, N_STEPS) if k not in first
+    first = {0, spk} if STRUCT_STEPS > spk else {0}
+    late = [k for k in range(1, STRUCT_STEPS) if k not in first
             and captures[k] != captures[k - 1]]
     out = {"config": "p2p_dubins_exact", "structure": runner.structure,
            "structure_reason": runner.structure_reason,
            "n_x": n_x, "n_g": n_g, "batch": STRUCT_BATCH,
-           "n_steps": N_STEPS, "rollout": STRUCT_ROLLOUT,
+           "n_steps": STRUCT_STEPS, "rollout": STRUCT_ROLLOUT,
            "inner_iter": STRUCT_INNER,
            "setup_cold_s": ref["setup_cold_s"],
            "setup_cold_threads": ref["threads"],
@@ -2519,7 +2909,7 @@ def generic_phase(T, device, reference):
            "setup_s": setup_s, "setup_cache_hit": hit,
            "reference_waited_s": waited_s,
            "cold_solve_s": init_s, "rollout_s": rollout_s,
-           "solves_per_s": STRUCT_BATCH * N_STEPS / rollout_s,
+           "solves_per_s": STRUCT_BATCH * STRUCT_STEPS / rollout_s,
            "p50_step_latency_ms": float(np.median(step_ms)),
            "max_step_latency_ms": float(np.max(step_ms)),
            "step_ms": step_ms,
@@ -2530,7 +2920,7 @@ def generic_phase(T, device, reference):
                                    | ~np.isfinite(states_np).all((1, 2)))),
            "mean_progress_frac": float(np.mean((d0 - d1) / d0)),
            "k1_launches": launches["psd_solve"],
-           "k1_launches_per_step": launches["psd_solve"] / N_STEPS,
+           "k1_launches_per_step": launches["psd_solve"] / STRUCT_STEPS,
            "k1_launches_by_systems": by_systems,
            "k1_variant": pk.variant(n_x, 1, torch.float32),
            "init_launches": init_launches, "rollout_launches": launches,
@@ -2805,7 +3195,8 @@ def moving_obstacle_states(B, seed=0):
 
 
 def obstacle_phase(T, device, cache_root):
-    """Phase 16 (b) and (c): the B = 4096, 20-step float32 rollouts at the
+    """Phase 16 (b) and (c): the B = 4096 float32 rollouts (20 steps; the
+    obstraj scene's OBSTRAJ_STEPS) at the
     bench settings (a) of bench.py's scene with the circle moving at a
     per-scenario velocity (``make_batch(obstacle_states=)``; the fused
     structure: K3, not K1 or K2) and (b) of the obstraj example's scene
@@ -2838,7 +3229,8 @@ def obstacle_phase(T, device, cache_root):
         "n_p": runner.n_p}), flush=True)
     st, launches, _ = main_path_phase(
         runner, consts, starts, goals, x0, p0, state, setup_s,
-        timed_runs=1, config="obstraj", feas_gate=False)
+        n_steps=OBSTRAJ_STEPS, timed_runs=1, config="obstraj",
+        feas_gate=False)
     out["obstraj"] = launches
     cross_check_phase(T, runner, st, starts, goals, p0, config="obstraj",
                       lanes=CONFIG_CROSS_LANES)
@@ -3597,6 +3989,23 @@ def structures_only(T, device, structures_ref, cache_root, started):
     print(json.dumps({"kernels": [rec for _, rec in records]}), flush=True)
 
 
+def mesh_only(T, device, started):
+    """``--mesh-only``: phase 21 on phase 14's scene built here, then the
+    device times of K1 at its two shapes and the kernels line; no final
+    line."""
+    import torch
+    formation = build_formation(T, device)
+    mesh = mesh_phase(T, device, formation)
+    name, entry, replaces, _ = KERNELS[0]
+    rec = dict(kernel_phase(device, kernels=(
+        (name, entry, replaces, (("formation", K1_FLEET_SHAPE),)),))[0][1],
+        launches=mesh["k1_by_systems"].get(str(FLEET_N), 0))
+    records = [("psd_solve_fleet", rec)] + mesh_records(device, mesh)
+    torch.cuda.synchronize()
+    print_elapsed(started)
+    print(json.dumps({"kernels": [r for _, r in records]}), flush=True)
+
+
 def print_elapsed(started):
     """The script's wall time so far (the build included)."""
     print("elapsed " + json.dumps({"seconds": time.time() - started}),
@@ -3649,6 +4058,9 @@ def run(cache_root, stack, started):
         structures_only(T, device, stack.enter_context(
             StructuresReference(cache_root)), cache_root, started)
         return
+    if "--mesh-only" in sys.argv[1:]:
+        mesh_only(T, device, started)
+        return
     runner, consts, starts, goals, x0, p0, state, setup_s, hit = \
         setup_phase(T, device)
     check(not hit, "the first build found its host tensors in the cache")
@@ -3667,14 +4079,19 @@ def run(cache_root, stack, started):
     launches.update({k: v for k, v in ca_launches.items()
                      if k != "fused_inner"})
     profile_phase(runner, st, p0, state, "compact-arrow")
-    cross_check_phase(T, runner, st, starts, goals, p0)
+    # phase 12's example copy beside the CPU solves of phase 11 (no time
+    # is taken there)
+    examples = start_examples("p2p_holonomic.py")
+    try:
+        cross_check_phase(T, runner, st, starts, goals, p0)
+    finally:
+        finish_examples(examples)
     k1_f64_launches, k1_f64_per_update = closed_loop_phase(device)
-    example_phase()
     # phase 13: the other bench configurations
     done = [config_phases(T, device, c, cache_root) for c in CONFIGS]
     # phase 14: bench.py's formation_holonomic
-    launches["psd_solve_fleet"], k1_per_iteration, _, k1_fleet_f64 = \
-        formation_phase(T, device)
+    launches["psd_solve_fleet"], k1_per_iteration, _, k1_fleet_f64, \
+        formation = formation_phase(T, device)
     # phase 16: the free-time and rotating-obstacle closed loops, the
     # moving and spline-trajectory obstacles batched
     loops = scene_phase(T, device, cache_root)
@@ -3690,6 +4107,8 @@ def run(cache_root, stack, started):
         T, device, structures_ref,
         {"st": st, "ca_states": ca_states, "cache_root": cache_root},
         cache_root)
+    # phase 21: the fleet mesh path and the multi-host layer, one rank
+    mesh = mesh_phase(T, device, formation)
     # phase 8's gate, its reference computed meanwhile
     parity_phase(T, device, reference, x0, p0, main_out["feas_p99"])
     # phase 15: device times, after every timed run
@@ -3700,6 +4119,8 @@ def run(cache_root, stack, started):
         rec["launches"] = launches[entry]
         if entry == "psd_solve_fleet":
             rec["launches_per_admm_iteration"] = k1_per_iteration
+            rec["launches_mesh_path"] = mesh["k1_by_systems"].get(
+                str(FLEET_N), 0)
     records.append(("psd_solve", k1_f64_record(device, k1_f64_launches,
                                                k1_f64_per_update)))
     records.append(("psd_solve", k1_f64_record(
@@ -3708,6 +4129,7 @@ def run(cache_root, stack, started):
     records += loop_records(device, loops)
     records += dist_records(device, dist)
     records += structures_records(device, generic, dense)
+    records += mesh_records(device, mesh)
     for c_k3, c_timers, chol, ca in done:
         k3_time_phase(c_k3[1], c_timers)
         records += config_records(device, chol, ca) + [c_k3]

@@ -17,13 +17,22 @@ package's ``lax.scan``):
 - plant updates through the vehicle rollout recipe
   (``problems.rollout_models``).
 
-The circular-graph neighbor exchange is an index roll along the vehicle
-axis.  Heterogeneous fleets (several vehicle-type groups, omgtools
-separate_per_build, distributedproblem.py:88-103) run one batched solve a
-group and scatter into the fleet-wide shared matrix.
+Fleet communication: on one device the circular-graph neighbor exchange
+is an index roll along the vehicle axis; on a ``torch.distributed``
+device mesh (``mesh=``) every rank owns a block of vehicles and the
+exchange is one ring step between neighbouring ranks, the residuals
+all-reduced (``parallel.fleet_mesh``, the JAX package's ``shard_map``
+with ``ppermute``/``psum``).  Any fleet size runs on the mesh: the blocks
+are padded to equal sizes, and the exchange goes through a gathered table
+when N does not divide the mesh dimension.
 
-Not ported yet: the mesh paths (``mesh=``, ``mesh_iterate_fn``,
-``mesh_rollout_fn``; ROADMAP.md Queue 1, the mesh path).
+Heterogeneous fleets (several vehicle-type groups, omgtools
+separate_per_build, distributedproblem.py:88-103): on one device one
+batched solve a group, scattered into the fleet-wide shared matrix; on the
+mesh every rank runs every group's solver on its block (SPMD, no
+divergent control flow), one-hot type masks selecting the rows each group
+owns, while the consensus exchange stays group-agnostic (one fleet-wide
+shared-coefficient layout).
 """
 
 from __future__ import annotations
@@ -35,11 +44,9 @@ import torch
 
 from ..problems.batch import resolve_device
 from ..problems.rollout_models import make_rollout_model
+from .fleet_mesh import all_gather, all_reduce, axis_size, ring_pull
 
 __all__ = ["FleetRunner", "FleetCarry"]
-
-_MESH = ("the fleet's mesh paths are not ported to omg_tools_torch yet "
-         "(ROADMAP.md Queue 1, the mesh path)")
 
 
 class FleetCarry(NamedTuple):
@@ -67,18 +74,27 @@ class _ModelAdapter:
 
 class FleetRunner:
     """Fleet-ADMM stepper for an initialized
-    :class:`problems.admm.ADMMProblem` (e.g. FormationPoint2point) on one
-    device: ``device`` None is CUDA, which must then exist."""
+    :class:`problems.admm.ADMMProblem` (e.g. FormationPoint2point):
+    ``device`` None is CUDA, which must then exist.
+
+    ``mesh``/``axis``: an optional ``torch.distributed`` DeviceMesh of the
+    runner's device type; the vehicle dimension is then split over its
+    dimension ``axis`` and the consensus communication becomes ring steps
+    and all-reduces (mixed fleets through per-group type masks).
+    """
 
     def __init__(self, admm_problem, dtype=torch.float32, update_time=0.1,
                  mesh=None, axis: str = "fleet", outer_iter: int = 2,
                  nesterov: bool = False, eta: float = 0.999, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         ap = admm_problem
         self.ap = ap
         self.dtype = dtype
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a runner on "
+                             f"{self.device.type}")
+        self.mesh = mesh
+        self.axis = axis
         self.update_time = float(update_time)
         self.outer_iter = outer_iter
         # Nesterov acceleration with restart in the device loop (the
@@ -119,10 +135,15 @@ class FleetRunner:
                 TfT.append(Tf.T)
                 TfinvT.append(np.linalg.inv(Tf).T)
             projT.append(proj.T)
-        self.TfT = torch.as_tensor(np.stack(TfT), **dev)
-        self.TfinvT = torch.as_tensor(np.stack(TfinvT), **dev)
-        self.projT = torch.as_tensor(np.stack(projT), **dev)
-        self.sh_shiftT = torch.as_tensor(ap._shared_shift().T, **dev)
+        # row-major copies: a product with a transposed operand rounds each
+        # row differently by the number of rows (MKL), and the mesh's
+        # blocks must compute the rows the whole fleet would
+        def const(a):
+            return torch.as_tensor(np.ascontiguousarray(a), **dev)
+        self.TfT = const(np.stack(TfT))
+        self.TfinvT = const(np.stack(TfinvT))
+        self.projT = const(np.stack(projT))
+        self.sh_shiftT = const(ap._shared_shift().T)
 
         # per-group constants
         self.groups = ap.groups
@@ -152,7 +173,7 @@ class FleetRunner:
                 S_idx=index(group.S_idx),
                 rel=torch.as_tensor(rel, **dev), rows=index(rows),
                 edges=index(edges),
-                x_shiftT=torch.as_tensor(group.x_shift.T, **dev),
+                x_shiftT=const(group.x_shift.T),
                 lb=torch.as_tensor(np.asarray(group.lb), **dev),
                 ub=torch.as_tensor(np.asarray(group.ub), **dev),
                 model=make_rollout_model(adapter)))
@@ -363,8 +384,288 @@ class FleetRunner:
                            "states": torch.stack(states, dim=1)}
         return run
 
+    # -- mesh-sharded variant ----------------------------------------------
+    def _mesh_setup(self):
+        """Common mesh-path geometry: the process group of the fleet
+        dimension, this rank's place in it, the padded block size, and the
+        neighbor-pull helpers (ring steps for divisible N, a gathered table
+        otherwise)."""
+        if self.mesh is None:
+            raise ValueError("construct the FleetRunner with a mesh")
+        mesh, axis = self.mesh, self.axis
+        group = mesh.get_group(axis)
+        n_dev = axis_size(mesh, axis)
+        me = mesh.get_local_rank(axis)
+        N = self.N
+        blk = -(-N // n_dev)          # padded block size
+        N_pad = blk * n_dev
+        ring = (N == N_pad)
+
+        if ring:
+            def _pull_next(Sb):
+                # S_{i+1}: in-block shift; boundary row from the next rank
+                return torch.cat([Sb[1:], ring_pull(Sb[:1], group, 1)])
+
+            def _pull_prev(Zb):
+                return torch.cat([ring_pull(Zb[-1:], group, -1), Zb[:-1]])
+        else:
+            # padded blocks: the neighbor lookup goes through an all-gather
+            rows = me * blk + np.arange(blk)
+            idx_next = torch.as_tensor(np.array(
+                [(i + 1) % N for i in range(N)] + [0] * (N_pad - N))[rows],
+                device=self.device)
+            idx_prev = torch.as_tensor(np.array(
+                [(i - 1) % N for i in range(N)] + [0] * (N_pad - N))[rows],
+                device=self.device)
+
+            def _pull_next(Sb):
+                return all_gather(Sb, group)[idx_next]
+
+            def _pull_prev(Zb):
+                return all_gather(Zb, group)[idx_prev]
+
+        return dict(group=group, n_dev=n_dev, me=me, blk=blk, N_pad=N_pad,
+                    ring=ring, pull_next=_pull_next, pull_prev=_pull_prev)
+
+    def _mesh_consensus_iter(self, ms, rel, mask, tmasks, Xs, Ps, Z, L,
+                             phase):
+        """ONE ADMM iteration on this rank's block: per-group cold
+        x-updates (every rank runs every group's solver on its block;
+        ``tmasks`` one-hot selects the rows each group owns), the ring or
+        all-reduced consensus, the lambda update, the residuals (summed
+        over the group, then square-rooted).  Neighbor pulls that go the
+        same way ride one exchange."""
+        rho = self.rho
+        n_sh = self.n_sh
+        group = ms["group"]
+        _pull_next, _pull_prev = ms["pull_next"], ms["pull_prev"]
+        TfT = self.TfT[phase]
+        TfinvT = self.TfinvT[phase]
+        projT = self.projT[phase]
+        rows = Xs[0].shape[0]
+        Zrows = torch.cat([Z, _pull_prev(Z)], dim=1) \
+            if self.circular else Z.reshape(1, -1).expand(rows, n_sh)
+        Xn_list = []
+        S = torch.zeros((rows, n_sh), dtype=Xs[0].dtype,
+                        device=Xs[0].device)
+        for g, Xg, Pg, tm in zip(self._g, Xs, Ps, tmasks):
+            Pl = Pg.clone()
+            Pl[:, g["i_z"]] = Zrows.reshape(rows, -1)
+            Pl[:, g["i_l"]] = L.reshape(rows, -1)
+            st = g["solver"](Xg, Pl, g["lb"], g["ub"],
+                             outer_iter=self.outer_iter)
+            Xn_g = torch.where(tm[:, None] > 0, st.x, Xg)
+            Xn_list.append(Xn_g)
+            S = S + tm[:, None] * (Xn_g[:, g["S_idx"]] + rel)
+        Xn = tuple(Xn_list)
+        m = mask[:, None]
+        S_t = S @ TfT
+        L_t = torch.einsum("nks,st->nkt", L, TfT)
+        Zt_prev = torch.einsum("es,st->et", Z, TfT)
+        if self.circular:
+            nxt = _pull_next(torch.cat([S_t, L_t[:, 1, :]], dim=1))
+            S_next, slot_prev = nxt[:, :n_sh], nxt[:, n_sh:]
+            avg = 0.5 * (S_t + L_t[:, 0, :] / rho + S_next + slot_prev / rho)
+            Zt_new = avg @ projT
+            Z_new = Zt_new @ TfinvT
+            prv = _pull_prev(torch.cat([Z_new, Zt_new], dim=1))
+            Z_prev, Zt_new_prev = prv[:, :n_sh], prv[:, n_sh:]
+            L0 = L[:, 0, :] + rho * (S - Z_new)
+            L1 = L[:, 1, :] + rho * (S - Z_prev)
+            L_new = torch.stack([L0, L1], dim=1)
+            pr2 = torch.sum(m * (S_t - Zt_new) ** 2) \
+                + torch.sum(m * (S_t - Zt_new_prev) ** 2)
+            dr2 = rho * torch.sum(m * (Zt_new - Zt_prev) ** 2)
+            pr2, dr2 = all_reduce(torch.stack([pr2, dr2]), group)
+        else:
+            # full graph: the global average, all-reduced
+            s_sum = all_reduce(
+                torch.sum(m * (S_t + L_t[:, 0, :] / rho), dim=0), group)
+            avg = s_sum / self.N
+            Zt_new = (avg @ projT).reshape(1, -1)
+            Z_new = Zt_new @ TfinvT
+            L_new = L + rho * (S - Z_new)[:, None, :]
+            pr2 = all_reduce(torch.sum(m * (S_t - Zt_new) ** 2), group)
+            dr2 = rho * torch.sum((Zt_new - Zt_prev) ** 2)
+        return Xn, Z_new, L_new, torch.sqrt(pr2), torch.sqrt(dr2)
+
+    def _mesh_run_wrapper(self, local, ms, out_states=False):
+        """Scatter per-group arrays into fleet order, pad to equal
+        per-rank blocks, take this rank's block onto its device, run
+        ``local`` on it, and gather the results back to group order: every
+        rank returns the whole fleet.  Single-group (homogeneous) callers
+        pass and receive bare tensors."""
+        N, N_pad, blk = self.N, ms["N_pad"], ms["blk"]
+        group = ms["group"]
+        lo, hi = ms["me"] * blk, (ms["me"] + 1) * blk
+        ap = self.ap
+        rel_full = np.zeros((N_pad, self.n_sh))
+        for i in range(N):
+            rel_full[i] = ap._rel_offsets(i)
+        mask_full = np.zeros(N_pad)
+        mask_full[:N] = 1.0
+        tmasks_full = []
+        for g in self._g:
+            tm = np.zeros(N_pad)
+            tm[g["rows"].cpu().numpy()] = 1.0
+            tmasks_full.append(tm)
+        dev = dict(dtype=self.dtype, device=self.device)
+
+        def prepare(Xs, Ps, Z, L):
+            """Once, before the timed calls: scatter per-group arrays into
+            padded fleet order and take this rank's block of every operand
+            onto its device.  Xs/Ps: per-group (n_i, n_x_g)/(n_i, n_p_g)
+            arrays (bare arrays for a homogeneous fleet); Z:(n_edges,
+            n_sh); L:(N, slots, n_sh)."""
+            single = not isinstance(Xs, (tuple, list))
+            Xs = (Xs,) if single else tuple(Xs)
+            Ps = (Ps,) if single else tuple(Ps)
+
+            def scatter(g, A):
+                """Group-local rows -> padded fleet-order rows (pad and
+                foreign rows replicate the group's first row -- benign,
+                masked out of the consensus)."""
+                A = torch.as_tensor(A, **dev)
+                full = A[:1].repeat(N_pad, 1)
+                full[g["rows"]] = A
+                return full[lo:hi]
+
+            def pad(a):
+                a = torch.as_tensor(a, **dev)
+                if a.shape[0] < N_pad:
+                    a = torch.cat([a, a[-1:].expand(
+                        (N_pad - a.shape[0],) + tuple(a.shape[1:]))])
+                return a[lo:hi]
+
+            Xf = tuple(scatter(g, X) for g, X in zip(self._g, Xs))
+            Pf = tuple(scatter(g, Pg) for g, Pg in zip(self._g, Ps))
+            Zp = pad(Z) if self.circular else torch.as_tensor(Z, **dev)
+            rel = torch.as_tensor(rel_full[lo:hi], **dev)
+            msk = torch.as_tensor(mask_full[lo:hi], **dev)
+            tms = tuple(torch.as_tensor(tm[lo:hi], **dev)
+                        for tm in tmasks_full)
+            return (Xf, Pf, Zp, pad(L), rel, msk, tms, single)
+
+        def run_placed(placed):
+            """Run on pre-placed operands and gather the results back to
+            group order.  Benchmarks time THIS (no host padding or
+            transfer inside)."""
+            Xf, Pf, Zp, Lp, rel, msk, tms, single = placed
+            (Xn, Zn, Ln), res = local(Xf, Pf, Zp, Lp, rel, msk, tms)
+            # every per-row output rides one all-gather
+            parts = list(Xn) + [Ln] + ([Zn] if self.circular else []) \
+                + ([res[2]] if out_states else [])
+            full = all_gather(torch.cat(
+                [a.reshape(blk, -1) for a in parts], dim=1), group)[:N]
+            out, col = [], 0
+            for a in parts:
+                w = a[0].numel()
+                out.append(full[:, col:col + w].reshape(
+                    (N,) + tuple(a.shape[1:])))
+                col += w
+            Xg_out = tuple(X[g["rows"]] for g, X in zip(self._g, out))
+            Ln = out[len(Xn)]
+            if self.circular:
+                Zn = out[len(Xn) + 1]
+            if out_states:
+                res = (res[0], res[1], out[-1])   # (N, n_steps, n_dim)
+            return ((Xg_out[0] if single else Xg_out, Zn, Ln), res)
+
+        def run(Xs, Ps, Z, L):
+            return run_placed(prepare(Xs, Ps, Z, L))
+        run.prepare = prepare
+        run.run_placed = run_placed
+        return run
+
+    def _mesh_iterations(self, ms, rel, mask, tmasks, Xs, Ps, Z, L, n_iter,
+                         phase):
+        """``n_iter`` mesh iterations with acceleration (momentum anchored
+        at the start); the residuals are all-reduced, so every rank takes
+        the same restart decision."""
+        acc = self._accel_init(Z, L)
+        pri, dua = [], []
+        for _ in range(n_iter):
+            Xs, Z, L, pr, dr = self._mesh_consensus_iter(
+                ms, rel, mask, tmasks, Xs, Ps, Z, L, phase)
+            if self.nesterov:
+                Z, L, acc = self._accelerate(Z, L, acc, pr, dr)
+            pri.append(pr)
+            dua.append(dr)
+        return Xs, Z, L, torch.stack(pri), torch.stack(dua)
+
     def mesh_iterate_fn(self, n_iter, phase=0):
-        raise NotImplementedError(_MESH)
+        """Mesh version of :meth:`iterate_fn`: vehicles split over the
+        mesh dimension ``self.axis``; neighbor exchange by ring steps or a
+        gathered table (N not divisible), residuals all-reduced.  The
+        x-updates solve cold.  Returns ``run(Xs, Ps, Z, L) -> ((Xs, Z, L),
+        (pri, dua))`` with ``run.prepare`` / ``run.run_placed``."""
+        ms = self._mesh_setup()
+
+        def local(Xs, Ps, Z, L, rel, mask, tmasks):
+            Xs, Z, L, pri, dua = self._mesh_iterations(
+                ms, rel, mask, tmasks, Xs, Ps, Z, L, n_iter, phase)
+            return (Xs, Z, L), (pri, dua)
+        return self._mesh_run_wrapper(local, ms)
 
     def mesh_rollout_fn(self, n_steps, iters_per_update=1):
-        raise NotImplementedError(_MESH)
+        """Mesh receding-horizon fleet rollout: the knot-passage X/Z/L
+        shifts, phase-indexed future-piece transforms and ideal plant
+        updates of :meth:`rollout_fn` run on every rank's block, with the
+        mesh consensus (omgtools admm.py:477-491 + dualmethod.py:209-224
+        semantics).  Returns ``run(Xs, Ps, Z, L) -> ((Xs, Z, L), (pri,
+        dua, states (N, n_steps, n_dim)))``."""
+        ms = self._mesh_setup()
+        spk = self.spk
+        dt = self.update_time
+
+        # per-group plant-state dims may differ in a mixed fleet: the
+        # states output is padded to the widest
+        def _sdim(model):
+            for attr in ("i_state0", "i_spl0", "i_pose0"):
+                if hasattr(model, attr):
+                    return int(np.asarray(getattr(model, attr)).size)
+            return 2
+        s_dim = max(_sdim(g["model"]) for g in self._g)
+
+        def local(Xs, Ps, Z, L, rel, mask, tmasks):
+            pri, dua, states = [], [], []
+            for k in range(n_steps):
+                phase = k % spk
+                if phase == 0 and k > 0:
+                    # knot-passage shift (block-local: the shift matrices
+                    # are the same on every rank)
+                    Xs = tuple(Xg @ g["x_shiftT"]
+                               for g, Xg in zip(self._g, Xs))
+                    Z = Z @ self.sh_shiftT
+                    L = torch.einsum("nks,st->nkt", L, self.sh_shiftT)
+                Ps_t = []
+                for g, Pg in zip(self._g, Ps):
+                    Pg = Pg.clone()
+                    Pg[:, g["i_t"]] = phase * dt
+                    Ps_t.append(Pg)
+                Xs, Z, L, prs, drs = self._mesh_iterations(
+                    ms, rel, mask, tmasks, Xs, Ps_t, Z, L, iters_per_update,
+                    phase)
+                pri.append(prs[-1])
+                dua.append(drs[-1])
+                # ideal plant update: sample the solved splines one period
+                # ahead, write state0/input0 back into the parameters
+                Ps_n = []
+                out = torch.zeros((Xs[0].shape[0], s_dim),
+                                  dtype=Xs[0].dtype, device=Xs[0].device)
+                for g, Xg, Pg, tm in zip(self._g, Xs, Ps_t, tmasks):
+                    cfs = Xg[:, g["i_spl"]].reshape(
+                        (Xg.shape[0],) + g["spl_shape"])
+                    Pg_n, st_g = g["model"].update(Pg, cfs, phase + 1,
+                                                   self.horizon)
+                    Ps_n.append(Pg_n)
+                    pad_w = s_dim - st_g.shape[-1]
+                    if pad_w:
+                        st_g = torch.cat([st_g, st_g.new_zeros(
+                            st_g.shape[:-1] + (pad_w,))], dim=-1)
+                    out = out + tm[:, None] * st_g
+                Ps = tuple(Ps_n)
+                states.append(out)
+            return (Xs, Z, L), (torch.stack(pri), torch.stack(dua),
+                                torch.stack(states, dim=1))
+        return self._mesh_run_wrapper(local, ms, out_states=True)

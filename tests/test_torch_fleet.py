@@ -300,12 +300,18 @@ def test_device_accelerate_matches_host():
         _close(Ld.numpy(), pt.L, 1e-12, f"L {k}")
 
 
-def test_fleet_needs_cuda_and_has_no_mesh(monkeypatch, formations):
+def test_fleet_needs_cuda_and_a_mesh_of_its_device(monkeypatch, formations):
+    """No device means CUDA; the mesh functions need a mesh
+    (``omg_tools_tpu/parallel/fleet_runner.py:408-409``), and a mesh of
+    the runner's device type; the exporter is the JAX package's."""
+    import types
     pt = formations[1]
-    with pytest.raises(NotImplementedError, match="Queue 1, the mesh path"):
-        FleetRunner(pt, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="cuda mesh for a runner on cpu"):
+        FleetRunner(pt, device="cpu",
+                    mesh=types.SimpleNamespace(device_type="cuda"))
     runner = FleetRunner(pt, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, the mesh path"):
+    with pytest.raises(ValueError, match="construct the FleetRunner with a "
+                       "mesh"):
         runner.mesh_iterate_fn(2)
     exporter = pt.export()
     assert isinstance(exporter, T.ExportFormation)

@@ -129,6 +129,61 @@ def test_subprocess_runs_the_formation_without_jax():
     assert out.stdout.strip().endswith("OK")
 
 
+# the mesh path: its modules and the launcher import, and one rank of gloo
+# runs a mesh iteration of the formation, in a fresh interpreter
+_CHILD_MESH = r"""
+import importlib.abc, sys
+BANNED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("omg_tools_torch imported " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+import omg_tools_torch as T
+from omg_tools_torch.parallel import fleet_mesh, multihost
+from omg_tools_torch.parallel import FleetRunner
+from omg_tools_torch.tools import multihost_launch
+from omg_tools_torch.environment.shapes import RegularPolyhedron
+vehicles = [T.Holonomic() for _ in range(4)]
+fleet = T.Fleet(vehicles)
+conf = RegularPolyhedron(0.2, 4, np.pi / 4).vertices.T
+fleet.set_configuration(conf.tolist())
+fleet.set_initial_conditions((np.array([-1.5, -1.5]) + conf).tolist())
+fleet.set_terminal_conditions((np.array([2.0, 2.0]) + conf).tolist())
+env = T.Environment(room={"shape": T.Square(5.0)})
+env.add_obstacle(T.Obstacle({"position": [1.5, 0.5]}, shape=T.Circle(0.4)))
+problem = T.FormationPoint2point(fleet, env, options={
+    "horizon_time": 10, "verbose": 0, "rho": 0.5, "device": "cpu",
+    "solver_options": {"outer_iter": 2, "inner_iter": 4}})
+problem.init()
+assert fleet_mesh.one_rank_group("cpu")
+mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("fleet",))
+runner = FleetRunner(problem, dtype=torch.float64, device="cpu", mesh=mesh)
+g = problem.groups[0]
+(X, Z, L), (pri, dua) = runner.mesh_iterate_fn(1)(
+    g.X, problem._pack_params(g, 0.0), problem.Z, problem.L)
+assert X.shape == g.X.shape and bool(torch.isfinite(pri).all())
+assert fleet_mesh.collectives["all_reduce"] == 1
+dist.destroy_process_group()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_subprocess_runs_a_mesh_iteration_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD_MESH % (BANNED,)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_subprocess_builds_other_bench_problems_without_jax():
     out = subprocess.run([sys.executable, "-c",
                           _CHILD_VEHICLES % (BANNED,)],
