@@ -14,10 +14,12 @@ Phases, in order; any failure raises and exits non-zero:
    (K1) of the dense and generic ALM modes and of the formation's
    x-update (4 x 85), in float32, and at the main shapes in float64; the variant each shape runs (a register class at
    the main shapes); one-call CUDA-event times (``call_ms``) and the plain
-   version's; and K1's global variant (systems beyond a block's shared
-   memory: float64 1 x 178, 1 x 186, 4 x 186, 1 x 203, 1 x 262, 1 x 395,
-   float32 1 x 262, ``k1_shapes_phase``), which ``variant`` must pick
-   there, and K1 float64 at the G-code window (1 x 50, ``reg64``);
+   version's; and K1's tiled variants (``block``, one CTA a system, and
+   ``global``, a thread-block cluster a system) at every shape of the
+   paths and tests that run them (``K1_TILED_SHAPES``,
+   ``k1_shapes_phase``: float64 1 x 85-395, 4 x 85, 2 x 90, 4 x 186;
+   float32 4 x 85 to 4,096 x 151), each in the variant ``variant`` must
+   pick there, and K1 float64 at the G-code window (1 x 50, ``reg64``);
 4. setup: the bench scene (``bench.py``'s p2p_holonomic: one Holonomic
    vehicle, 5 m room, two 3.0x0.2 m rectangles and a 0.4 m circle, 10 s
    horizon at 10 Hz) and its float32 runner, which must pick the
@@ -127,7 +129,7 @@ Phases, in order; any failure raises and exits non-zero:
     MultiFrameProblem over two rooms, n_x 120), schedulerproblem_example1.py
     (a SchedulerProblem with shift frames and local FreeTPoint2points, n_x
     93) and schedulerproblem_example2.py (two-frame corridors, local
-    MultiFrameProblems of 186 variables: K1's global variant), the first
+    MultiFrameProblems of 186 variables: K1's block variant), the first
     VAST_UPDATES updates of each through ``scene_loop`` as in 16: K1 in
     every update, no K2 or K3, the frame switches, problem builds and
     CUDA-graph captures of each update (scheduler2 must switch at least
@@ -140,7 +142,7 @@ Phases, in order; any failure raises and exits non-zero:
     gcodeproblem_rsq5.py (a Tool in a GCodeSchedulerProblem's rolling
     window of two segments, local GCodeProblems of 50 variables: K1
     reg64) and examples/formation_holonomic_central.py (three Holonomic
-    vehicles in one FormationPoint2pointCentral, n_x 203: K1's global
+    vehicles in one FormationPoint2pointCentral, n_x 203: K1's block
     variant), the first GCODE_UPDATES updates of each through
     ``scene_loop`` as in 16: K1 in every update, no K2 or K3, the window
     rolls, problem builds and CUDA-graph captures of each update; every
@@ -221,7 +223,19 @@ Phases, in order; any failure raises and exits non-zero:
     under a 1e-15 move of that start; with
     ``examples_torch/fleet_mesh_admm_tpu.py`` in a process of its own
     beside the phase; within 75 s;
-15. times (after 21 and 8): the device time of K1 and K2 at every shape of 3
+22. inter-vehicle avoidance (``interveh_phase``): the scene of
+    examples/p2p_holonomic_interveh_avoidance.py (two Holonomic
+    vehicles crossing a 5 m room, one separating hyperplane between
+    them, n_x 111) through ``scene_loop`` in float64 on the card, its
+    first INTERVEH_UPDATES updates in the default generic mode: K1 in the
+    variant ``variant`` picks (``block`` at 1 x 111) in every update, no
+    K2 or K3, the two centres at least 0.2 m apart (two Circle(0.1),
+    within 1e-3 m) at every simulated sample and in every update's plan
+    over its horizon (the plans cover the crossing), and closer in the
+    control's one update (the scene without the plane), the first solve
+    on a cut budget against the CPU's; with the example's copy in smoke
+    mode in a process of its own beside it;
+15. times (after 22 and 8): the device time of K1 and K2 at every shape of 3
     and 13 (``device_ms``: the profiler's self CUDA time of the kernel's
     own name over 20 launches, over 20) and of ``cholesky_ex`` +
     ``cholesky_solve``'s kernels on the same inputs, K3's at both shapes of
@@ -229,9 +243,9 @@ Phases, in order; any failure raises and exits non-zero:
     shape (1 x 151), at the formation's (4 x 85), at phase 16's, 17's
     and 18's (1 x n_x), at phase 19's x-updates (B x n_x), in float32
     at phase 20's (1024 x 190, 256 x 190, 4096 x 151) and 21's
-    (1024 x 85) and of K1's
-    global variant and of K1 at the G-code window (1 x 50) at the shapes
-    of 3; taken last, so that no profiler
+    (1024 x 85), at phase 22's (1 x 111), of K1's tiled variants at
+    the shapes of 3 no phase times and of K1 at the G-code window (1 x
+    50); taken last, so that no profiler
     session but 9's (and 14's trace) precedes the timed runs.
 
 ``--kernels-only`` runs phases 1-3 with the device times and stops (no
@@ -244,7 +258,10 @@ no final line).  ``--structures-only`` runs phases 1-3, 4, 10 (on the
 fused runner's cold solve) and 20, then phase 20's K1 device times, and
 prints its kernels line (no final line).  ``--mesh-only`` runs phases 1-3
 and 21 (on phase 14's scene, built for it), K1's device times at 4 x 85
-and 1,024 x 85, and prints its kernels line (no final line).
+and 1,024 x 85, and prints its kernels line (no final line);
+``--interveh-only`` runs phases 1-3 and 22 as ``--scenes-only`` runs 16.
+``--kernels-only`` checks and times K1 at every shape of
+K1_TILED_SHAPES; the whole run times those a phase's record does not.
 
 The line before the ``kernels`` JSON object gives the script's wall time
 (``elapsed``, the build included); the last two lines before the final
@@ -370,11 +387,11 @@ VAST_UPDATES = {"multiframe": 12, "scheduler1": 12, "scheduler2": 18}
 # two blocks have zero length: the window rolls in updates 0 and 1) and
 # gcodeproblem_rsq5.py (rings, the machining velocity limit), both at the
 # examples' simulator settings, and examples/formation_holonomic_central.py
-# (three Holonomic vehicles in one NLP, n_x 203: K1's global variant).
+# (three Holonomic vehicles in one NLP, n_x 203: K1's block variant).
 # The gates: every update feasible (GCODE_FEAS_GATE), slot_multi's window
 # rolls at least once on K1 reg64, rsq5's tool stays in its first tube
 # (|y| < GCODE_TUBE_Y m, the tube's half width 0.4 m), the formation takes
-# K1 global and its centres spread less than FORMATION_SPREAD_M
+# K1 block and its centres spread less than FORMATION_SPREAD_M
 # (tests/test_distributed.py:47-53)
 GCODE_PROGRAMS = {
     "gcode_slot_multi": ("slot_multi.nc", {"tolerance": 0.3}),
@@ -468,6 +485,11 @@ DENSE_STRUCTURES = ("quadratic", "compact")
 DENSE_SPREAD_DRAWS = 2
 DENSE_SPREAD_FACTOR = 4.0
 F32_PERTURB = 1e-6
+# (b) also holds K1 to the library on the compact rollout's own systems:
+# its first DENSE_ACCURACY_SOLVES 4,096-lane solves, each lane's error
+# against a float64 solve of the same float32 system; the kernel's p99
+# over lanes no larger than cholesky_ex + cholesky_solve's
+DENSE_ACCURACY_SOLVES = 4
 # the batched runs with moving obstacles: bench.py's p2p_holonomic with
 # its circle's velocity drawn per scenario (numpy seed 0: speed uniform in
 # 0-0.2 m/s, as the warehouse example's obstacles move, direction
@@ -543,20 +565,41 @@ K3_REPLACES = "omg_tools_tpu/ops/fused_alm.py:297"
 K1_F64_NAME = "K1 chol_solve r=1 (psd_solve) float64, Problem.solve"
 K1_F64_SOURCE = "omg_tools_torch/csrc/chol_solve_f64.cu"
 K1_F64_SHAPE = (1, 151, 1)
-# K1's global variant (systems beyond a block's shared memory), float64
-# unless named: the scheduler's two-frame local problems (the maze test's
-# 178 rows; example2's 186, also four at once), the central formation of
-# examples/formation_holonomic_central.py (203), a system of 262 rows (in
-# float64 and float32: float32 K1 leaves its block variant above 236 rows)
-# and the free-time warehouse (395)
-K1_GLOBAL_NAME = "K1 chol_solve r=1 (psd_solve), global variant"
-K1_GLOBAL_SHAPES = (("scheduler_maze", (1, 178, "float64")),
-                    ("scheduler2", (1, 186, "float64")),
-                    ("scheduler2_x4", (4, 186, "float64")),
-                    ("formation_central", (1, 203, "float64")),
-                    ("n262", (1, 262, "float64")),
-                    ("warehouse", (1, 395, "float64")),
-                    ("n262_f32", (1, 262, "float32")))
+# K1's tiled variants (``block``: a system's column tiles in one CTA;
+# ``global``: spread over a thread-block cluster) at every shape of the
+# paths that run them and of the tests: (tag, (N systems, n, dtype), the
+# variant it must take, whether a path's record of the whole run times
+# it).  The scheduler's two-frame local problems (the maze test's 178
+# rows; example2's 186, also four at once), the central formation (203),
+# a system of 262 rows (float64 and float32), the free-time warehouse
+# (395); Problem.solve on the bench scene (151), the multiframe (120),
+# scheduler1 (93), the revolving door (85), the formation's x-update (4 x
+# 85), the landing's Quadrotors (2 x 90), the interveh scene (111); the
+# generic structure (1,024 and 256 x 190), the quadratic and compact ones
+# (4,096 x 151), the hybrid fleet update (1,024 x 85).  The whole run
+# times the others last (``k1_shapes_phase``), ``--kernels-only`` all.
+K1_TILED_NAME = "K1 chol_solve r=1 (psd_solve), tiled variants"
+K1_TILED_SHAPES = (
+    ("scheduler_maze", (1, 178, "float64"), "block", False),
+    ("scheduler2", (1, 186, "float64"), "block", True),
+    ("scheduler2_x4", (4, 186, "float64"), "block", False),
+    ("formation_central", (1, 203, "float64"), "block", True),
+    ("n262", (1, 262, "float64"), "global", False),
+    ("warehouse", (1, 395, "float64"), "global", False),
+    ("n262_f32", (1, 262, "float32"), "block", False),
+    ("problem_solve", (1, 151, "float64"), "block", True),
+    ("multiframe", (1, 120, "float64"), "block", True),
+    ("interveh", (1, 111, "float64"), "block", True),
+    ("scheduler1", (1, 93, "float64"), "block", True),
+    ("revolving_door", (1, 85, "float64"), "block", True),
+    ("formation_f64", (4, 85, "float64"), "block", True),
+    ("landing_quadrotors", (2, 90, "float64"), "block", True),
+    ("generic", (1024, 190, "float32"), "block", True),
+    ("generic_rescue", (256, 190, "float32"), "block", True),
+    ("quadratic_compact", (4096, 151, "float32"), "block", True),
+    ("dense", (256, 151, "float32"), "block", True),
+    ("formation", (4, 85, "float32"), "block", True),
+    ("hybrid", (1024, 85, "float32"), "block", True))
 # K1 float64 in a register class at phase 18's G-code window (n_x 50: the
 # right-hand side rides as a row, 51 <= 64), with the variant it must take
 K1_REG_SHAPES = (("gcode_window", (1, 50, "float64"), "reg64"),)
@@ -576,6 +619,20 @@ K1_STRUCT_NAME = "K1 chol_solve r=1 (psd_solve), dense structures"
 K1_STRUCT_SHAPES = (("generic", (1024, 190, 1)),
                     ("generic_rescue", (256, 190, 1)),
                     ("quadratic_compact", (4096, 151, 1)))
+
+# phase 22: examples/p2p_holonomic_interveh_avoidance.py's scene (two
+# Holonomic vehicles, Circle(0.1) each, crossing a 5 m room; fixed time),
+# its first INTERVEH_UPDATES closed-loop updates in float64 on the card;
+# the centres must stay INTERVEH_CLEARANCE_M apart (two radii) at every
+# simulated sample and in every update's plan, within INTERVEH_CLEARANCE_TOL
+INTERVEH_SCENE = "p2p_holonomic_interveh"
+# the control: the same scene without the plane, one update, whose plans
+# must cross (the clearance gate can fail)
+INTERVEH_CONTROL = "p2p_holonomic_interveh_no_plane"
+INTERVEH_ROUTES = (([-1.5, -1.5], [1.5, 1.5]), ([1.5, -1.5], [-1.5, 1.5]))
+INTERVEH_UPDATES = 6
+INTERVEH_CLEARANCE_M = 0.2
+INTERVEH_CLEARANCE_TOL = 1e-3
 
 # bench.py's other single-vehicle configurations (bench.py:233-345) at
 # bench.py's settings for each: budgets, rescue, recovery metric and
@@ -920,17 +977,18 @@ def kernel_phase_f64(name, entry, N, n, r, device, timed, shape="main",
     return line
 
 
-def k1_shapes_phase(device, timed):
-    """K1's global variant (systems beyond a block's shared memory) at
-    K1_GLOBAL_SHAPES, and K1 at K1_REG_SHAPES, against its plain version,
-    with the tolerances of the K1 rows in the same type; each shape must
-    take its variant.  With ``timed``, the times of ``kernel_phase_f64``.
-    Returns the kernel_check lines."""
+def k1_shapes_phase(device, timed, every=False):
+    """K1's tiled variants at K1_TILED_SHAPES, and K1 at K1_REG_SHAPES,
+    against its plain version, with the tolerances of the K1 rows in the
+    same type; each shape must take its variant.  With ``timed``, the
+    times of ``kernel_phase_f64``, at the shapes no path's record times
+    (at all of them with ``every``).  Returns the kernel_check lines."""
     import torch
     from omg_tools_torch.ops import psd_kernels as pk
     lines = []
-    shapes = [(K1_GLOBAL_NAME, tag, shape, "global")
-              for tag, shape in K1_GLOBAL_SHAPES] + \
+    shapes = [(K1_TILED_NAME, tag, shape, var)
+              for tag, shape, var, by_path in K1_TILED_SHAPES
+              if not (timed and by_path and not every)] + \
         [(K1_F64_NAME, tag, shape, var) for tag, shape, var in K1_REG_SHAPES]
     for name, tag, (N, n, dtype), want in shapes:
         var = pk.variant(n, 1, getattr(torch, dtype))
@@ -1027,10 +1085,14 @@ def build_scene(T, scene, options=None):
     """One of the example scenes of phase 16 in the package ``T`` (the
     port, or in the tests the JAX package), not yet initialized:
     ``p2p_dubins`` and ``p2p_bicycle`` (free time), ``revolving_door`` (a
-    rectangle rotating at pi/6 rad/s, fixed time) and ``obstraj`` (a
-    rectangle and a circle on a caller-given spline trajectory), as the
-    examples of the same names build them (examples/p2p_dubins.py,
-    p2p_bicycle.py, revolving_door.py, p2p_holonomic_obstraj_export.py)."""
+    rectangle rotating at pi/6 rad/s, fixed time), ``obstraj`` (a
+    rectangle and a circle on a caller-given spline trajectory) and
+    ``p2p_holonomic_interveh`` (two vehicles crossing, inter-vehicle
+    avoidance; phase 22), as the examples of the same names build them
+    (examples/p2p_dubins.py, p2p_bicycle.py, revolving_door.py,
+    p2p_holonomic_obstraj_export.py, p2p_holonomic_interveh_avoidance.py);
+    the vast-environment and G-code scenes of ``build_vast_scene`` and
+    ``build_gcode_scene``."""
     if scene == "p2p_dubins":
         vehicle = T.Dubins(bounds={"vmax": 0.7, "wmax": np.pi / 3,
                                    "wmin": -np.pi / 3})
@@ -1081,6 +1143,22 @@ def build_scene(T, scene, options=None):
             "coeffs": coeffs}})
         env.add_obstacle(obstacle)
         freeT = False
+    elif scene in (INTERVEH_SCENE, INTERVEH_CONTROL):
+        # two vehicles crossing the room, kept apart by a separating
+        # hyperplane between them (inter_vehicle_avoidance; not in the
+        # control)
+        vehicles = []
+        for start, goal in INTERVEH_ROUTES:
+            vehicle = T.Holonomic()
+            vehicle.set_initial_conditions(start)
+            vehicle.set_terminal_conditions(goal)
+            vehicles.append(vehicle)
+        env = T.Environment(room={"shape": T.Square(5.0)})
+        problem = T.Point2point(
+            T.Fleet(vehicles), env, freeT=False,
+            options={"inter_vehicle_avoidance": scene == INTERVEH_SCENE})
+        problem.set_options({"verbose": 0, **(options or {})})
+        return problem
     elif scene in VAST_SCENES or scene in GCODE_LOOPS:
         problem = (build_vast_scene(T, scene) if scene in VAST_SCENES
                    else build_gcode_scene(T, scene))
@@ -2146,6 +2224,59 @@ class recorded_solves:
         Problem._run_solver = self.orig
 
 
+class recorded_k1:
+    """Within the block, the inputs of the first ``keep`` K1 calls of the
+    ALM (``ops.alm.psd_solve``) on (B, n, n) systems, cloned; each call
+    still goes to K1 and is counted."""
+
+    def __init__(self, B, n, keep):
+        self.shape, self.keep, self.systems = (B, n, n), keep, []
+
+    def __enter__(self):
+        from omg_tools_torch.ops import alm
+        self.orig = orig = alm.psd_solve
+        systems, shape, keep = self.systems, self.shape, self.keep
+
+        def solve(H, g):
+            if tuple(H.shape) == shape and len(systems) < keep:
+                systems.append((H.clone(), g.clone()))
+            return orig(H, g)
+        alm.psd_solve = solve
+        return systems
+
+    def __exit__(self, *exc):
+        from omg_tools_torch.ops import alm
+        alm.psd_solve = self.orig
+
+
+def k1_accuracy(systems):
+    """Each lane's relative error in x against a float64 solve of the
+    same float32 system (its lower triangle), for K1, the library
+    (cholesky_ex + cholesky_solve) and the plain version: the median, p99
+    and max over lanes, each the largest over the solves."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    out = {"solves": len(systems)}
+    for name in ("k1", "library", "plain"):
+        out[name] = {"median": 0.0, "p99": 0.0, "max": 0.0}
+    for H, g in systems:
+        low = torch.tril(H.double())
+        want = torch.linalg.solve(low + torch.tril(low, -1).transpose(1, 2),
+                                  g.double())
+        L = torch.linalg.cholesky_ex(H)[0]
+        got = {"k1": pk.psd_solve(H, g),
+               "library": torch.cholesky_solve(g[..., None], L)[..., 0],
+               "plain": pk.psd_solve_plain(H, g)}
+        for name, x in got.items():
+            err = torch.nan_to_num((x.double() - want).norm(dim=1)
+                                   / want.norm(dim=1), nan=float("inf"))
+            for key, v in (("median", err.median()),
+                           ("p99", torch.quantile(err, 0.99)),
+                           ("max", err.max())):
+                out[name][key] = max(out[name][key], float(v))
+    return out
+
+
 def _loop_counts(problem):
     """(frame switches, problem builds, window rolls) so far: a
     scheduler's frames and cached problems, or a G-code scheduler's window
@@ -2201,6 +2332,7 @@ def scene_loop(T, device, scene, n_updates=None):
               "window_rolls": [], "graph_captures": [],
               "n_x_per_update": [], "k1_variant_per_update": []}
     wall_ms, solve_ms, k1, iters, feas, spread = [], [], [], [], [], []
+    plan_gap = []
     central = isinstance(problem, T.FormationPoint2pointCentral)
     stopped = False
     switches0 = getattr(problem, "cnt_frame_switches", 0)
@@ -2221,6 +2353,8 @@ def scene_loop(T, device, scene, n_updates=None):
             solve_ms.append(1e3 * problem.solver_stats["time"])
             if central:
                 spread.append(formation_spread(problem))
+            if len(problem.vehicles) > 1 and not central:
+                plan_gap.append(plan_center_distance(problem.vehicles))
             after = (*_loop_counts(problem), CapturedCall.captures)
             for key, a, b in zip(("frame_switches", "problem_builds",
                                   "window_rolls", "graph_captures"),
@@ -2275,6 +2409,12 @@ def scene_loop(T, device, scene, n_updates=None):
                     max_abs_y=float(np.max(np.abs(state[1]))))
     if central:
         line["center_spread_m"] = spread
+    if len(problem.vehicles) > 1 and not central:
+        # the closest two vehicles' centres came at any simulated sample,
+        # and in each update's plan over its horizon
+        line["min_center_distance_m"] = min_center_distance(
+            [v.signals["pose"] for v in problem.vehicles])
+        line["min_plan_center_distance_m"] = plan_gap
     if type(first).__name__ == "FreeTPoint2point":
         line["motion_time_left_s"] = float(
             first.get_variables(first, "T")[0])
@@ -2327,15 +2467,78 @@ def scene_phase(T, device, cache_root):
     return loops
 
 
+def min_center_distance(poses):
+    """The least distance between two vehicles' centres over the common
+    samples of their (3, T) poses."""
+    xy = [np.asarray(p, np.float64)[:2] for p in poses]
+    return min(float(np.linalg.norm(u - v, axis=0).min())
+               for i, u in enumerate(xy) for v in xy[i + 1:])
+
+
+def plan_center_distance(vehicles):
+    """The least distance between two vehicles' planned centres over
+    their plans' samples (``trajectories["pose"]``) but the last: that one
+    is the horizon's end, where a plan has reached its goal, and at some
+    updates its pose comes out as zeros."""
+    return min_center_distance(
+        [np.asarray(v.trajectories["pose"], np.float64)[:, :-1]
+         for v in vehicles])
+
+
+def interveh_phase(T, device):
+    """Phase 22: examples/p2p_holonomic_interveh_avoidance.py's scene (two
+    vehicles crossing, inter-vehicle avoidance) through ``scene_loop``,
+    INTERVEH_UPDATES updates: K1 in the variant ``variant`` picks for its
+    n_x in every update, the vehicles' centres at least
+    INTERVEH_CLEARANCE_M apart (within INTERVEH_CLEARANCE_TOL) at every
+    simulated sample and in every update's plan over its horizon, the
+    first solve against the CPU's; the control (the scene without the
+    plane, one update) must plan the centres closer; the example's copy
+    in smoke mode in a process of its own beside it.  Returns the loop's
+    line (in a dict by scene, as the other loops)."""
+    import torch
+    from omg_tools_torch.ops import psd_kernels as pk
+    t0 = time.time()
+    examples = start_examples("p2p_holonomic_interveh_avoidance.py")
+    try:
+        loop = scene_loop(T, device, INTERVEH_SCENE, INTERVEH_UPDATES)
+        control = scene_loop(T, device, INTERVEH_CONTROL, 1)
+    finally:
+        finish_examples(examples)
+    want = pk.variant(loop["n_x"], 1, torch.float64)
+    check(set(loop["k1_variant_per_update"]) == {want},
+          f"interveh ran K1's {set(loop['k1_variant_per_update'])}, not "
+          f"{want}")
+    # the simulated samples cover only the first updates' motion; each
+    # update's plan covers the whole crossing, so the plans' clearance is
+    # the one a missing or wrong separating plane shows in
+    least = INTERVEH_CLEARANCE_M - INTERVEH_CLEARANCE_TOL
+    for key, gap in (("simulated", loop["min_center_distance_m"]),
+                     ("planned", min(loop["min_plan_center_distance_m"]))):
+        check(gap >= least,
+              f"interveh: the vehicles' {key} centres came {gap} m apart")
+    crossed = min(control["min_plan_center_distance_m"])
+    check(crossed < least,
+          f"interveh: without the plane the plans kept {crossed} m apart")
+    print("interveh_phase " + json.dumps({
+        "n_x": loop["n_x"], "k1_variant": want,
+        "min_center_distance_m": loop["min_center_distance_m"],
+        "min_plan_center_distance_m": min(
+            loop["min_plan_center_distance_m"]),
+        "control_min_plan_center_distance_m": crossed,
+        "seconds": time.time() - t0}), flush=True)
+    return {INTERVEH_SCENE: loop}
+
+
 def vast_phase(T, device):
     """Phase 17: the vast-environment closed loops (``VAST_LOOPS``, the
     first VAST_UPDATES[scene] updates each).  Returns the loops' lines."""
     loops = {scene: scene_loop(T, device, scene, VAST_UPDATES[scene])
              for scene in VAST_LOOPS}
     s2 = loops["scheduler2"]
-    check("global" in s2["k1_variant_per_update"],
+    check("block" in s2["k1_variant_per_update"],
           f"scheduler2 ran K1's {set(s2['k1_variant_per_update'])}, not "
-          "global")
+          "block")
     check(sum(s2["frame_switches"]) >= 1,
           "scheduler2 saw no frame switch")
     return loops
@@ -2360,9 +2563,9 @@ def gcode_phase(T, device):
           f"rsq5's tool left its first tube: |y| "
           f"{loops['gcode_rsq5']['max_abs_y']}")
     central = loops["formation_central"]
-    check(set(central["k1_variant_per_update"]) == {"global"},
+    check(set(central["k1_variant_per_update"]) == {"block"},
           f"formation_central ran K1's "
-          f"{set(central['k1_variant_per_update'])}, not global")
+          f"{set(central['k1_variant_per_update'])}, not block")
     check(max(central["center_spread_m"]) < FORMATION_SPREAD_M,
           f"formation_central's centres spread "
           f"{max(central['center_spread_m'])} m")
@@ -3041,7 +3244,9 @@ def dense_phase(T, device, main):
         consts = runner.consts()
         roll = runner.rollout_fn(CA_STEPS, **ROLLOUT)
         zero_launch_counts()
-        carry, states = roll(st_s, p0, state, consts)
+        with recorded_k1(B, n_x, DENSE_ACCURACY_SOLVES
+                         if structure == "compact" else 0) as systems:
+            carry, states = roll(st_s, p0, state, consts)
         torch.cuda.synchronize()
         launches = launch_counts()
         by_systems = k1_launches_by_systems()
@@ -3075,6 +3280,14 @@ def dense_phase(T, device, main):
               and launches["psd_solve_multi"] == 0
               and launches["fused_inner"] == 0,
               f"{structure} launched {launches}")
+        if systems:
+            acc = k1_accuracy(systems)
+            out[structure]["k1_accuracy"] = acc
+            print("dense_k1_accuracy " + json.dumps(acc), flush=True)
+            check(acc["k1"]["p99"] <= acc["library"]["p99"],
+                  f"K1 on the compact rollout's systems: p99 error "
+                  f"{acc['k1']['p99']}, the library's "
+                  f"{acc['library']['p99']}")
         check(out[structure]["k1_variant"] == "block",
               f"K1 at {n_x} rows takes {out[structure]['k1_variant']}")
     return out
@@ -4035,7 +4248,7 @@ def run(cache_root, stack, started):
     device = torch.device("cuda")
     if "--kernels-only" in sys.argv[1:]:
         kernel_phase(device)
-        k1_shapes_phase(device, timed=True)
+        k1_shapes_phase(device, timed=True, every=True)
         return
     kernel_phase(device, timed=False)
     k1_shapes_phase(device, timed=False)
@@ -4044,6 +4257,8 @@ def run(cache_root, stack, started):
                             T, device)),
                         ("--gcode-only", lambda T, device, _: gcode_phase(
                             T, device)),
+                        ("--interveh-only", lambda T, device, _:
+                         interveh_phase(T, device)),
                         ("--distributed-only", None)):
         if flag in sys.argv[1:]:
             records = dist_records(device, distributed_phase(T, device)) \
@@ -4109,6 +4324,8 @@ def run(cache_root, stack, started):
         cache_root)
     # phase 21: the fleet mesh path and the multi-host layer, one rank
     mesh = mesh_phase(T, device, formation)
+    # phase 22: inter-vehicle avoidance
+    loops.update(interveh_phase(T, device))
     # phase 8's gate, its reference computed meanwhile
     parity_phase(T, device, reference, x0, p0, main_out["feas_p99"])
     # phase 15: device times, after every timed run

@@ -63,30 +63,68 @@
 //     consecutive addresses.
 //   - Size classes, not shapes: NMAX = 32, 48 or 64 rows (n, plus the
 //     augmented row when r = 1) bound the unrolled loops and register
-//     arrays; n and r are run-time values within a class.  Larger systems
-//     take a block variant (one system a block, the same Crout order in
-//     run-time loops over shared memory); K1 at n = 151 (the dense and
-//     generic ALM modes) is its shape.  A system too large for a block's
-//     shared memory is refused.
-//   - float32 in every class; float64 (right, not fast) in the 64-row class
-//     and the block variant.  Full-precision FMAs only, no tensor cores:
-//     these Newton systems are ill-conditioned.
-//   - Systems too large for a block's shared memory (float64 above ~168
-//     rows: the scheduler's two-frame local problems, 178-186 rows; the
-//     central formation, 262; the free-time warehouse, 395) take the
-//     global variant (chol_global_kernel, its own entry point
-//     omg_chol_solve_ws_*): one block of 256 threads a system, factored
-//     in place in a global-memory workspace the caller provides (at most
-//     1.25 MB a system, which the 50 MB L2 holds) by a right-looking
-//     blocked Cholesky over panels of 32 columns.  Each panel is staged in
-//     shared memory (rows at an odd stride of 33 elements), factored there
-//     column by column, written back, and the trailing lower triangle is
-//     updated from it (a warp a row, lanes along the row, the row's 32
-//     panel entries in registers).  The right-hand sides ride along as r
-//     augmented rows [H; G'], so the factorization leaves (L^-1 G)' in
-//     them; the backward substitution then runs column by column over
-//     shared memory.  Simple and right, not fast: one block walks every
-//     pivot of its system.
+//     arrays; n and r are run-time values within a class.
+//   - float32 in every class; float64 in the 64-row class.  Full-precision
+//     FMAs only, no tensor cores in float32 (no TF32): these Newton
+//     systems are ill-conditioned.
+// Larger systems take the tiled variants, one kernel (chol_tile_kernel):
+// `block` (variant 0), one CTA of 256 threads a system, and `global`
+// (variant 1), a thread-block cluster of P = 2..8 CTAs a system, for
+// systems whose tiles exceed one CTA's shared memory (float64 above 215
+// rows, float32 above 315: the warehouse's 395, systems of 262 in
+// float64).  They replace a one-warp Crout kernel (a run-time dot product
+// a row and two warp barriers a pivot: ~n^2/2 dependent steps on one warp)
+// and a global-workspace kernel (three block barriers a column, the
+// trailing triangle through L2 every panel), both slower than
+// cholesky_ex + cholesky_solve on one system.
+//   What bounds them: on one system (the closed loops' Newton step, 85-395
+//   rows) the chain of n pivots, each an rsqrt and its broadcast, and the
+//   n steps of the backward substitution, with the trailing update and
+//   the panel solve between tiles; on wide batches (1,024-4,096 systems
+//   of 85-190 rows, float32) the FMAs and the shared-memory reads of the
+//   trailing update, with enough CTAs resident to hide each one's chain.
+//   The bytes (the lower triangle once) bound neither.
+//   The design:
+//   - Columns in tiles of 32 (the last ragged); tile j holds rows j 32 ..
+//     m - 1 (m = n + r: G' rides along as r augmented rows, so the
+//     factorization leaves (L^-1 G)' in them) column-major, at a stride of
+//     an odd number of 16-byte units: only the lower triangle is stored
+//     (151 float32 rows: 64 KB, 3 CTAs an SM).  Tiles are loaded with
+//     cp.async, tile 0 apart, so that its factor starts while the others
+//     arrive.  A CTA walks one system; the hardware keeps 2-8 CTAs an SM
+//     resident, which overlaps one's load with the others' work (a second
+//     stage a CTA would halve them).
+//   - Right-looking by tiles, a barrier a tile step, none a pivot: one
+//     warp factors the diagonal block in registers (a lane a row; the
+//     pivots' chain in registers, L's column broadcast through shared
+//     memory), all warps solve the panel below it (a thread a row), then
+//     update the trailing tiles: float32 in 4 x 4 register items of FMAs,
+//     float64 in 8 x 8 items on the FP64 tensor cores (mma.sync m8n8k4:
+//     IEEE float64 fused multiply-adds, twice the FP64 FMA rate).  The
+//     owner of the next tile updates it first and factors it (warp 0)
+//     while the other warps update the rest.
+//   - global: the tiles, largest first, go to the least-loaded CTA of the
+//     cluster; the owner of a panel factors it and releases it with a
+//     split cluster barrier (arrive after the factor, wait before the
+//     read), the others copy it from its shared memory (DSMEM) and update
+//     their own tiles: one cluster barrier a panel, no global workspace.
+//     The launch checks with cudaOccupancyMaxActiveClusters that the
+//     cluster fits and refuses it otherwise (beyond 8 CTAs: ~439 float64,
+//     ~691 float32 rows).
+//   - Backward substitution by tiles, last first: the owner solves the
+//     diagonal block, a warp a right-hand side (a lane a column, x_i by
+//     shuffle), then every CTA takes x off the z of its earlier tiles.
+//   - float32 on one CTA refines once: the residual G - H X in float64
+//     (H's lower triangle read again from device memory) into the
+//     augmented rows, its forward substitution by tiles, the backward
+//     again, X += d.  The bench scene's dense Newton systems lose up to
+//     ~1e-2 of x to float32 rounding in any Cholesky (the library's too),
+//     enough to move a rollout's lane at an active-set decision; one step
+//     leaves a few roundings of X, as a float64 solve of the same float32
+//     system would.  float64, and the global variant (no float32 path),
+//     do not refine.
+//   - float64 CTAs get 255 registers (one CTA an SM: these are single
+//     systems); float32 ones 85 (three an SM: wide batches).
 // The variant is chosen by the caller (omg_tools_torch/ops/psd_kernels.py
 // variant()); the entry point checks that it fits and returns
 // cudaErrorInvalidValue, launching nothing, when it does not.
@@ -131,6 +169,15 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
                "l"(src), "n"(static_cast<int>(sizeof(T))));
+}
+// one element, or a zero where `take` is false (no source byte read)
+template <typename T>
+__device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src,
+                                                 bool take) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(static_cast<int>(sizeof(T))),
+               "r"(take ? static_cast<int>(sizeof(T)) : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -443,193 +490,562 @@ chol_warp_kernel(const T* __restrict__ H, const T* __restrict__ G,
   }
 }
 
-// Block variant: one warp a block and a system a block, for systems above
-// the classes: the same Crout Cholesky in run-time loops over shared
-// memory, g as the augmented row for r = 1; for r > 1 the panel sits in
-// shared memory and lanes own its columns.
-template <typename T, bool ONE>
-__global__ void __launch_bounds__(32)
-chol_block_kernel(const T* __restrict__ H, const T* __restrict__ G,
-                  T* __restrict__ X, int N, int n, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int W = Vec<T>::W;
-  const int lane = threadIdx.x;
-  const int m = ONE ? n + 1 : n;
-  const int ld = row_stride(n, W);
-  T* S = reinterpret_cast<T*>(smem_raw);
-  T* dinv = S + m * ld;
-  T* Z = dinv + round_up(n, W);
-  const long long sys = blockIdx.x;
-  const T* Hs = H + sys * n * n;
-  for (int i = 0; i < n; ++i)
-    for (int k = lane; k <= i; k += 32) S[i * ld + k] = Hs[i * n + k];
-  if constexpr (ONE) {
-    for (int k = lane; k < n; k += 32) S[n * ld + k] = G[sys * n + k];
-  } else {
-    for (int e = lane; e < n * r; e += 32) Z[e] = G[sys * n * r + e];
+// Tiled variants (block: one CTA a system; global: a cluster of P CTAs a
+// system), one kernel for both.  m = n + r rows: the lower triangle of H,
+// then the r rows of G' (augmented rows).  The columns are cut into tiles
+// of kTB; tile j holds columns j kTB .. j kTB + w_j - 1 (w_j = kTB but for
+// the last) of rows j kTB .. m - 1, column-major at a stride ld_j of
+// whole 16-byte units, an odd number of them (a column of 4 rows is one
+// or two 16-byte vectors, and a warp's vectors along a row of tiles hit
+// distinct banks).  Each tile lives in the shared memory of the CTA that
+// owns it (tile_map: the tiles, largest first, to the least-loaded CTA).
+constexpr int kTB = 32;                // columns a tile
+constexpr int kTileThreads = 256;      // threads a CTA
+constexpr int kSLD = kTB + 4;          // the diagonal block's scratch stride
+constexpr int kMaxCluster = 8;         // CTAs a cluster (portable limit)
+constexpr int kMaxTiles = 64;          // n <= 2,048
+
+template <typename T>
+__host__ __device__ __forceinline__ int tile_ld(int m, int j) {
+  constexpr int W = 16 / static_cast<int>(sizeof(T));   // elements a vector
+  int ld = round_up(m - j * kTB, 4);
+  if ((ld / W) % 2 == 0) ld += W;
+  return ld;
+}
+
+// owner[j], off[j]: the CTA that holds tile j and the tile's offset in its
+// storage (elements); returns the largest storage of one CTA.
+template <typename T>
+__host__ __device__ inline int tile_map(int n, int m, int P, int* owner,
+                                        int* off) {
+  int load[kMaxCluster];
+  for (int p = 0; p < P; ++p) load[p] = 0;
+  int most = 0;
+  const int nt = (n + kTB - 1) / kTB;
+  for (int j = 0; j < nt; ++j) {
+    int q = 0;
+    for (int p = 1; p < P; ++p)
+      if (load[p] < load[q]) q = p;
+    owner[j] = q;
+    off[j] = load[q];
+    load[q] += kTB * tile_ld<T>(m, j);
+    if (load[q] > most) most = load[q];
   }
+  return most;
+}
+
+// Shared elements of one CTA: its tiles, a copy of a remote panel (P > 1),
+// the diagonal block's scratch, the inverse pivots, x of one tile.
+__host__ __device__ inline size_t tile_elems(int n, int r, int P, int most) {
+  const int m = n + r;
+  const size_t panel =
+      P > 1 && m > kTB ? static_cast<size_t>(kTB) * round_up(m - kTB, 4) : 0;
+  return static_cast<size_t>(most) + panel + kTB * kSLD + round_up(n, 4) +
+         static_cast<size_t>(kTB) * r;
+}
+
+template <typename T>
+size_t tile_smem(int n, int r, int P) {
+  int owner[kMaxTiles], off[kMaxTiles];
+  const int most = tile_map<T>(n, n + r, P, owner, off);
+  return sizeof(T) * tile_elems(n, r, P, most);
+}
+
+// 4 consecutive elements from 16-byte aligned shared memory, and back
+template <typename T> struct Four { T v[4]; };
+__device__ __forceinline__ Four<float> ld4(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  return {{a.x, a.y, a.z, a.w}};
+}
+__device__ __forceinline__ Four<double> ld4(const double* p) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  return {{a.x, a.y, b.x, b.y}};
+}
+__device__ __forceinline__ void st4(float* p, const Four<float>& f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f.v[0], f.v[1], f.v[2], f.v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const Four<double>& f) {
+  *reinterpret_cast<double2*>(p) = make_double2(f.v[0], f.v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(f.v[2], f.v[3]);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the address of p (this CTA's shared memory) in CTA `rank`'s, as a
+// generic pointer (distributed shared memory)
+template <typename T>
+__device__ __forceinline__ const T* remote(const T* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
+}
+
+// The diagonal block of a tile (w columns, rows 0 .. w - 1 of A), factored
+// by one warp, no block barrier: lane i holds row i in registers,
+// right-looking.  At pivot j each lane writes its L[i][j] to column j of
+// the scratch S (at S + j kSLD) and takes L[t][j] for t > j from it as
+// 16-byte broadcasts (four a load, where shuffles take one each).  The
+// pivots' chain stays in registers: lane i keeps its diagonal entry apart
+// (``diag``, updated by its own L[i][j]^2), so pivot j + 1 is one shuffle
+// after pivot j's rsqrt, with no shared-memory round trip in between.
+// Writes L back to A (lower part) and 1 / L[j][j] to dinv[j]; S keeps L's
+// columns for the panel solve.
+template <typename T>
+__device__ __forceinline__ void factor_diag(T* A, int ld, int w, T* S,
+                                            T* dinv, int lane) {
+  T a[kTB];
+  T diag = T(0);
+#pragma unroll
+  for (int t = 0; t < kTB; ++t) {
+    a[t] = (t <= lane && lane < w) ? A[t * ld + lane] : T(0);
+    if (t == lane) diag = a[t];
+  }
+#pragma unroll
+  for (int j = 0; j < kTB; ++j) {
+    if (j >= w) break;
+    const T inv = rsq(__shfl_sync(kFull, diag, j));
+    a[j] *= inv;
+    diag = fma(-a[j], a[j], diag);
+    if (lane == j) dinv[j] = inv;
+    S[j * kSLD + lane] = a[j];
+    __syncwarp();
+#pragma unroll
+    for (int g = (j + 1) / 4; g < kTB / 4; ++g) {
+      const Four<T> l = ld4(S + j * kSLD + 4 * g);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (4 * g + q > j) a[4 * g + q] = fma(-a[j], l.v[q], a[4 * g + q]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTB; ++t)
+    if (t <= lane && lane < w) A[t * ld + lane] = a[t];
   __syncwarp();
-  // Crout, as the classes do, in run-time loops: each lane's rows take
-  // their dot products with row j, then the pivot scales them
-  for (int j = 0; j < n; ++j) {
-    const T* Lj = S + j * ld;
-    for (int i = j + lane; i < m; i += 32)
-      S[i * ld + j] = row_dot(S + i * ld, Lj, j, j);
-    __syncwarp();
-    const T d = Lj[j];
-    const T inv = rsq(d);
-    __syncwarp();
-    for (int i = j + 1 + lane; i < m; i += 32) S[i * ld + j] *= inv;
-    if (lane == 0) {
-      S[j * ld + j] = d * inv;
-      dinv[j] = inv;
-    }
-    __syncwarp();
-  }
-  if constexpr (ONE) {
-    T* z = S + n * ld;
-    for (int i = n - 1; i >= 0; --i) {
-      const T xi = z[i] * dinv[i];
-      __syncwarp();
-      for (int k = lane; k < i; k += 32) z[k] = fma(-S[i * ld + k], xi, z[k]);
-      if (lane == 0) z[i] = xi;
-      __syncwarp();
-    }
-    for (int k = lane; k < n; k += 32) X[sys * n + k] = z[k];
-  } else {
-    for (int c = lane; c < r; c += 32) {
-      for (int i = 0; i < n; ++i) {
-        T t = Z[i * r + c];
-        for (int k = 0; k < i; ++k) t = fma(-S[i * ld + k], Z[k * r + c], t);
-        Z[i * r + c] = t * dinv[i];
-      }
-      for (int i = n - 1; i >= 0; --i) {
-        const T xi = Z[i * r + c] * dinv[i];
-        Z[i * r + c] = xi;
-        for (int k = 0; k < i; ++k)
-          Z[k * r + c] = fma(-S[i * ld + k], xi, Z[k * r + c]);
+}
+
+// The rows of a tile below its diagonal block (rows w .. len - 1 of A):
+// L[i][:] = A[i][:] L_kk'^-1, a thread a row in registers, L_kk from the
+// scratch as 16-byte broadcasts.
+template <typename T>
+__device__ __forceinline__ void panel_solve(T* A, int ld, int w, int len,
+                                            const T* S, const T* dinv,
+                                            int t_id, int nth) {
+  for (int i = w + t_id; i < len; i += nth) {
+    T a[kTB];
+#pragma unroll
+    for (int t = 0; t < kTB; ++t) a[t] = t < w ? A[t * ld + i] : T(0);
+#pragma unroll
+    for (int t = 0; t < kTB; ++t) {
+      if (t >= w) break;
+      a[t] *= dinv[t];
+#pragma unroll
+      for (int g = (t + 1) / 4; g < kTB / 4; ++g) {
+        const Four<T> l = ld4(S + t * kSLD + 4 * g);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (4 * g + q > t) a[4 * g + q] = fma(-a[t], l.v[q], a[4 * g + q]);
       }
     }
-    __syncwarp();
-    for (int e = lane; e < n * r; e += 32) X[sys * n * r + e] = Z[e];
+#pragma unroll
+    for (int t = 0; t < kTB; ++t)
+      if (t < w) A[t * ld + i] = a[t];
   }
 }
 
-// Global variant: one block a system, factored in place in W, m = n + r
-// rows of n (the lower triangle of H, then the r rows of G'), row-major.
-constexpr int kPanel = 32;             // columns a panel
-constexpr int kPanelLd = kPanel + 1;   // a staged panel row's stride
-constexpr int kPanelThreads = 256;     // threads a block
+// The trailing update with panel k (rows (k + 1) kTB .. m - 1 of its L
+// columns, at Pp, stride pld) of this CTA's tiles jlo <= j < jhi: A_j -=
+// Pk Pk' on the lower triangle.  float32: items of 4 rows x 4 columns, a
+// thread an item (threads t_id of nth), the 4 x 4 sums in registers, FMAs
+// only.
+template <typename T>
+__device__ __forceinline__ void update_tiles_fma(
+    T* base, const int* owner, const int* off, int rank, int m, int n, int k,
+    int jlo, int jhi, const T* Pp, int pld, int t_id, int nth) {
+  int j = jlo, start = 0;
+  for (int e = t_id;; e += nth) {
+    int R = 0, cbs = 0;
+    for (; j < jhi; ++j) {       // the own tile that holds item e
+      if (owner[j] != rank) continue;
+      R = (m - j * kTB + 3) / 4;
+      const int w = n - j * kTB < kTB ? n - j * kTB : kTB;
+      cbs = (w + 3) / 4;
+      if (e < start + R * cbs) break;
+      start += R * cbs;
+    }
+    if (j >= jhi) return;
+    const int le = e - start;
+    const int cb = le / R, rb = le % R;
+    if (rb < cb) continue;       // above the diagonal
+    const int rel = (j - k - 1) * kTB;   // tile j's first row in the panel
+    T acc[4][4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] = T(0);
+#pragma unroll 4
+    for (int t = 0; t < kTB; ++t) {
+      const Four<T> a = ld4(Pp + t * pld + rel + 4 * rb);
+      const Four<T> b = ld4(Pp + t * pld + rel + 4 * cb);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fma(a.v[x], b.v[y], acc[x][y]);
+    }
+    T* A = base + off[j];
+    const int ld = tile_ld<T>(m, j);
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      T* col = A + (4 * cb + y) * ld + 4 * rb;
+      Four<T> v = ld4(col);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) v.v[x] -= acc[x][y];
+      st4(col, v);
+    }
+  }
+}
+
+
+// float64: the same update on the FP64 tensor cores (IEEE float64 fused
+// multiply-adds, mma.sync m8n8k4): items of 8 rows x 8 columns, a warp an
+// item (warps t_id / 32 of nth / 32), 8 steps of 4 columns of the panel.
+// Fragments: lane l holds A[l / 4][l % 4] (a panel row), B[l % 4][l / 4]
+// (a panel row for a column) and C[l / 4][2 (l % 4) + {0, 1}].  Rows
+// beyond the panel's or the tile's stored rows are read as zeros and not
+// written.
+__device__ __forceinline__ void dmma(double& c0, double& c1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+__device__ __forceinline__ void update_tiles_mma(
+    double* base, const int* owner, const int* off, int rank, int m, int n,
+    int k, int jlo, int jhi, const double* Pp, int pld, int t_id, int nth) {
+  const int lane = t_id & 31, g = lane >> 2, tg = lane & 3;
+  const int prows = round_up(m - (k + 1) * kTB, 4);   // the panel's rows
+  int j = jlo, start = 0;
+  for (int e = t_id >> 5;; e += nth >> 5) {
+    int R = 0, cbs = 0;
+    for (; j < jhi; ++j) {       // the own tile that holds item e
+      if (owner[j] != rank) continue;
+      R = (m - j * kTB + 7) / 8;
+      const int w = n - j * kTB < kTB ? n - j * kTB : kTB;
+      cbs = (w + 7) / 8;
+      if (e < start + R * cbs) break;
+      start += R * cbs;
+    }
+    if (j >= jhi) return;
+    const int le = e - start;
+    const int cb = le / R, rb = le % R;
+    if (rb < cb) continue;       // above the diagonal
+    const int rel = (j - k - 1) * kTB;   // tile j's first row in the panel
+    const int pa = rel + 8 * rb + g, pb = rel + 8 * cb + g;
+    double c0 = 0.0, c1 = 0.0;
+#pragma unroll
+    for (int t = 0; t < kTB; t += 4) {
+      const double* col = Pp + (t + tg) * pld;
+      dmma(c0, c1, pa < prows ? col[pa] : 0.0, pb < prows ? col[pb] : 0.0);
+    }
+    const int row = 8 * rb + g;
+    if (row < round_up(m - j * kTB, 4)) {
+      double* A = base + off[j];
+      const int ld = tile_ld<double>(m, j);
+      A[(8 * cb + 2 * tg) * ld + row] -= c0;
+      A[(8 * cb + 2 * tg + 1) * ld + row] -= c1;
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kPanelThreads)
-chol_global_kernel(const T* __restrict__ H, const T* __restrict__ G,
-                   T* __restrict__ X, T* __restrict__ Wk, int N, int n,
-                   int r) {
+__device__ __forceinline__ void update_tiles(
+    T* base, const int* owner, const int* off, int rank, int m, int n, int k,
+    int jlo, int jhi, const T* Pp, int pld, int t_id, int nth) {
+  if constexpr (sizeof(T) == 8)
+    update_tiles_mma(base, owner, off, rank, m, n, k, jlo, jhi, Pp, pld,
+                     t_id, nth);
+  else
+    update_tiles_fma(base, owner, off, rank, m, n, k, jlo, jhi, Pp, pld,
+                     t_id, nth);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 3 : 1)
+chol_tile_kernel(const T* __restrict__ H, const T* __restrict__ G,
+                 T* __restrict__ X, int n, int r, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warps = nt >> 5;
+  __shared__ int owner[kMaxTiles], off[kMaxTiles], most_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = P > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const long long sys = blockIdx.x / P;
   const int m = n + r;
-  const long long sys = blockIdx.x;
-  T* A = Wk + sys * static_cast<long long>(m) * n;
+  const int nt = (n + kTB - 1) / kTB;
+  if (tid == 0) most_s = tile_map<T>(n, m, P, owner, off);
+  __syncthreads();
+  T* base = reinterpret_cast<T*>(smem_raw);
+  const int ldb = round_up(m - kTB, 4);
+  T* buf = base + most_s;
+  T* S = buf + (P > 1 && m > kTB ? kTB * ldb : 0);
+  T* dinv = S + kTB * kSLD;
+  T* xb = dinv + round_up(n, 4);
   const T* Hs = H + sys * static_cast<long long>(n) * n;
   const T* Gs = G + sys * static_cast<long long>(n) * r;
-  T* P = reinterpret_cast<T*>(smem_raw);  // a panel; later the z columns
-  const size_t p_len =
-      static_cast<size_t>(m) * kPanelLd > static_cast<size_t>(r) * n
-          ? static_cast<size_t>(m) * kPanelLd
-          : static_cast<size_t>(r) * n;
-  T* dinv = P + p_len;
-  // the workspace: H's lower triangle, then G' as rows n .. m - 1
-  for (int i = warp; i < n; i += warps)
-    for (int k = lane; k <= i; k += 32)
-      A[static_cast<size_t>(i) * n + k] = Hs[static_cast<size_t>(i) * n + k];
-  for (int e = tid; e < n * r; e += nt)
-    A[static_cast<size_t>(n + e % r) * n + e / r] = Gs[e];
-  __syncthreads();
-  for (int k0 = 0; k0 < n; k0 += kPanel) {
-    const int nb = n - k0 < kPanel ? n - k0 : kPanel;
-    const int rows = m - k0;
-    // stage the panel: rows k0 .. m - 1, columns k0 .. k0 + nb - 1 (the
-    // lower triangle of its diagonal block)
-    for (int e = tid; e < rows * nb; e += nt) {
-      const int i = e / nb, t = e % nb;
-      if (t <= i)
-        P[i * kPanelLd + t] = A[static_cast<size_t>(k0 + i) * n + k0 + t];
+  auto width = [&](int j) { return n - j * kTB < kTB ? n - j * kTB : kTB; };
+
+  // this CTA's tiles, by cp.async (all of a tile's copies in flight at
+  // once): a lane a column (a row's 32 columns are one coalesced read), a
+  // warp a group of 4 rows; H's lower triangle, then G' as rows n .. m - 1,
+  // zeros elsewhere (copies of no source byte)
+  for (int j = 0; j < nt; ++j) {
+    if (owner[j] != rank) continue;
+    T* A = base + off[j];
+    const int c0 = j * kTB, ld = tile_ld<T>(m, j), w = width(j);
+    const int c = c0 + lane;
+    for (int g = warp; 4 * g < m - c0; g += kTileThreads / 32) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = c0 + 4 * g + q;
+        const T* src = Hs;
+        bool take = false;
+        if (lane < w && i < n && i >= c) {
+          src = Hs + static_cast<long long>(i) * n + c;
+          take = true;
+        } else if (lane < w && i >= n && i < m) {
+          src = Gs + static_cast<long long>(c) * r + (i - n);
+          take = true;
+        }
+        cp_async_or_zero(A + lane * ld + 4 * g + q, src, take);
+      }
     }
+    if (j == 0) cp_commit();     // tile 0 apart: its factor starts first
+  }
+  cp_commit();
+  if (owner[0] == rank) cp_wait_prev(); else cp_wait_all();
+  __syncthreads();
+
+  // factorization, right-looking by tiles; the owner of tile k + 1 updates
+  // it first and factors it (warp 0 the diagonal block while the other
+  // warps update the rest of its tiles), then releases it to the cluster
+  if (owner[0] == rank) {
+    if (warp == 0) factor_diag(base, tile_ld<T>(m, 0), width(0), S, dinv, lane);
     __syncthreads();
-    // factor it column by column
-    for (int j = 0; j < nb; ++j) {
-      const T d = P[j * kPanelLd + j];
-      const T inv = rsq(d);
-      __syncthreads();  // every thread has read the pivot
-      for (int i = j + 1 + tid; i < rows; i += nt) P[i * kPanelLd + j] *= inv;
-      if (tid == 0) {
-        P[j * kPanelLd + j] = d * inv;
-        dinv[k0 + j] = inv;
+    panel_solve(base, tile_ld<T>(m, 0), width(0), m, S, dinv, tid,
+                kTileThreads);
+  }
+  cp_wait_all();
+  __syncthreads();
+  if (P > 1) cluster_arrive();
+  for (int k = 0; k + 1 < nt; ++k) {
+    if (P > 1) cluster_wait();   // panel k is out
+    bool mine = false;           // any own tile right of k?
+    for (int j = k + 1; j < nt; ++j) mine |= owner[j] == rank;
+    const T* Pp;
+    int pld;
+    if (owner[k] == rank) {
+      Pp = base + off[k] + kTB;
+      pld = tile_ld<T>(m, k);
+    } else {
+      // copy panel k from its owner, column by column, 16 bytes a thread
+      const int len4 = round_up(m - (k + 1) * kTB, 4);
+      if (mine) {
+        const T* src = remote(base + off[k] + kTB, owner[k]);
+        const int ldk = tile_ld<T>(m, k);
+        for (int e = tid; e < kTB * (len4 / 4); e += kTileThreads) {
+          const int t = e / (len4 / 4), i = 4 * (e % (len4 / 4));
+          st4(buf + t * ldb + i, ld4(src + t * ldk + i));
+        }
       }
       __syncthreads();
-      const int w = nb - j - 1;  // the panel's columns right of j
-      if (w > 0) {
-        for (int e = tid; e < (rows - j - 1) * w; e += nt) {
-          const int i = j + 1 + e / w, t = j + 1 + e % w;
-          if (t <= i)
-            P[i * kPanelLd + t] =
-                fma(-P[i * kPanelLd + j], P[t * kPanelLd + j],
-                    P[i * kPanelLd + t]);
+      Pp = buf;
+      pld = ldb;
+    }
+    const int c1 = (k + 1) * kTB;
+    if (owner[k + 1] == rank) {
+      T* A = base + off[k + 1];
+      const int ld = tile_ld<T>(m, k + 1), w = width(k + 1);
+      update_tiles(base, owner, off, rank, m, n, k, k + 1, k + 2, Pp, pld,
+                   tid, kTileThreads);
+      __syncthreads();
+      if (warp == 0)
+        factor_diag(A, ld, w, S, dinv + c1, lane);
+      else
+        update_tiles(base, owner, off, rank, m, n, k, k + 2, nt, Pp, pld,
+                     tid - 32, kTileThreads - 32);
+      __syncthreads();
+      panel_solve(A, ld, w, m - c1, S, dinv + c1, tid, kTileThreads);
+      __syncthreads();
+      if (P > 1) cluster_arrive();
+    } else {
+      if (P > 1) cluster_arrive();
+      update_tiles(base, owner, off, rank, m, n, k, k + 1, nt, Pp, pld, tid,
+                   kTileThreads);
+      __syncthreads();
+    }
+  }
+  if (P > 1) cluster_wait();
+
+  // backward substitution by tiles, last first: the owner of tile jt
+  // solves its diagonal block, L_jj' x_j = z_j (a warp a right-hand side,
+  // a lane a column's z, x_i by shuffle; x over z in the augmented rows
+  // and in xb); every CTA then takes x_j off the z of its tiles left of jt
+  auto backward = [&]() {
+    for (int jt = nt - 1; jt >= 0; --jt) {
+      const int c0 = jt * kTB, w = width(jt), ldj = tile_ld<T>(m, jt);
+      if (owner[jt] == rank) {
+        T* A = base + off[jt];
+        for (int q = warp; q < r; q += kTileThreads / 32) {
+          T z = lane < w ? A[lane * ldj + (n - c0) + q] : T(0);
+          for (int i = w - 1; i >= 0; --i) {
+            const T xi = __shfl_sync(kFull, z, i) * dinv[c0 + i];
+            if (lane < i) z = fma(-A[lane * ldj + i], xi, z);
+            else if (lane == i) z = xi;
+          }
+          if (lane < w) {
+            A[lane * ldj + (n - c0) + q] = z;
+            xb[q * kTB + lane] = z;
+          }
+          if (lane >= w) xb[q * kTB + lane] = T(0);
+        }
+      }
+      __syncthreads();
+      if (jt == 0) break;
+      if (P > 1) cluster_sync();   // x_jt is out
+      bool mine = false;
+      for (int j = 0; j < jt; ++j) mine |= owner[j] == rank;
+      if (mine) {
+        if (owner[jt] != rank) {
+          const T* A = remote(base + off[jt], owner[jt]);
+          for (int e = tid; e < r * kTB; e += kTileThreads) {
+            const int q = e / kTB, i = e % kTB;
+            xb[e] = i < w ? A[i * ldj + (n - c0) + q] : T(0);
+          }
+          __syncthreads();
+        }
+        // z[q][c] -= L[c0 + i][c] x[q][i] over this CTA's columns c < c0: a
+        // thread a (column, right-hand side), column fastest, i < w only
+        // (rows beyond are z or padding)
+        int j = 0, start = 0;
+        for (int e = tid;; e += kTileThreads) {
+          for (; j < jt; ++j) {
+            if (owner[j] != rank) continue;
+            if (e < start + kTB * r) break;
+            start += kTB * r;
+          }
+          if (j >= jt) break;
+          const int c = (e - start) % kTB, q = (e - start) / kTB;
+          T* A2 = base + off[j];
+          const int ld2 = tile_ld<T>(m, j);
+          const T* Lc = A2 + c * ld2 + (c0 - j * kTB);
+          const T* xq = xb + q * kTB;
+          T acc[4] = {T(0), T(0), T(0), T(0)};
+          for (int i = 0; i < w; i += 4) {
+            const Four<T> l = ld4(Lc + i);
+            const Four<T> x = ld4(xq + i);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[u] = fma(l.v[u], x.v[u], acc[u]);
+          }
+          A2[c * ld2 + (n - j * kTB) + q] -= (acc[0] + acc[1]) + (acc[2] + acc[3]);
         }
       }
       __syncthreads();
     }
-    // the panel's columns of L back to the workspace
-    for (int e = tid; e < rows * nb; e += nt) {
-      const int i = e / nb, t = e % nb;
-      if (t <= i)
-        A[static_cast<size_t>(k0 + i) * n + k0 + t] = P[i * kPanelLd + t];
-    }
-    // the trailing lower triangle, and the augmented rows: A[i][c] -=
-    // L[i][panel] . L[c][panel] for c in k0 + nb .. min(i, n - 1); a warp
-    // a row, its panel entries in registers, lanes along the row
-    const int k1 = k0 + nb;
-    for (int i = k1 + warp; i < m; i += warps) {
-      T a[kPanel];
-#pragma unroll
-      for (int t = 0; t < kPanel; ++t)
-        a[t] = t < nb ? P[(i - k0) * kPanelLd + t] : T(0);
-      const int cend = i < n - 1 ? i : n - 1;
-      for (int c = k1 + lane; c <= cend; c += 32) {
-        const T* Pc = P + (c - k0) * kPanelLd;
-        T acc[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll
-        for (int t = 0; t < kPanel; ++t)
-          if (t < nb) acc[t & 3] = fma(a[t], Pc[t], acc[t & 3]);
-        T* dst = A + static_cast<size_t>(i) * n + c;
-        *dst -= sum_parts(acc);
+  };
+  // X from the augmented rows of this CTA's tiles (or, refining, X += d)
+  T* Xs = X + sys * static_cast<long long>(n) * r;
+  auto store_x = [&](bool add) {
+    for (int j = 0; j < nt; ++j) {
+      if (owner[j] != rank) continue;
+      const T* A = base + off[j];
+      const int c0 = j * kTB, w = width(j), ld = tile_ld<T>(m, j);
+      for (int e = tid; e < w * r; e += kTileThreads) {
+        const int c = e / r, q = e % r;
+        T* x = Xs + static_cast<long long>(c0 + c) * r + q;
+        const T v = A[c * ld + (n - c0) + q];
+        *x = add ? *x + v : v;
       }
     }
-    __syncthreads();  // the workspace's updates before the next panel
-  }
-  // backward substitution: z_q = (L^-1 G)'[q] from the augmented rows,
-  // x = L'^-1 z column by column, x_i written as it is found
-  T* Z = P;
-  for (int e = tid; e < r * n; e += nt)
-    Z[e] = A[static_cast<size_t>(n) * n + e];
-  __syncthreads();
-  T* Xs = X + sys * static_cast<long long>(n) * r;
-  for (int i = n - 1; i >= 0; --i) {
-    const T di = dinv[i];
-    const T* Li = A + static_cast<size_t>(i) * n;
-    for (int e = tid; e < r * i; e += nt) {
-      const int q = e / i, k = e % i;
-      Z[q * n + k] = fma(-Li[k], Z[q * n + i] * di, Z[q * n + k]);
+  };
+  backward();
+  store_x(false);
+  if constexpr (sizeof(T) == 4) {
+    if (P == 1) {
+      // one step of refinement (float32, one CTA): the residual
+      // G - H X in float64 from H's lower triangle in device memory, into
+      // the augmented rows; its forward substitution by tiles (the
+      // factorization did G's along the way); the backward again; X += d
+      __syncthreads();           // X is out
+      for (int e = tid; e < n * r; e += kTileThreads) {
+        const int i = e % n, q = e / n;
+        const T* Hi = Hs + static_cast<long long>(i) * n;
+        const T* xq = Xs + q;
+        double acc = static_cast<double>(Gs[static_cast<long long>(i) * r + q]);
+        for (int j = 0; j <= i; ++j)
+          acc -= static_cast<double>(Hi[j]) * static_cast<double>(xq[j * r]);
+        for (int j = i + 1; j < n; ++j)
+          acc -= static_cast<double>(Hs[static_cast<long long>(j) * n + i]) *
+                 static_cast<double>(xq[j * r]);
+        const int t = i / kTB, c0 = t * kTB;
+        base[off[t] + (i - c0) * tile_ld<T>(m, t) + (n - c0) + q] =
+            static_cast<T>(acc);
+      }
+      __syncthreads();
+      // forward by tiles, first first: L_kk z_k = r_k (a warp a right-hand
+      // side, a lane a row, z_i by shuffle), then r_c -= L[c][k] z_k for
+      // the rows c of the later tiles (a thread a (row, right-hand side))
+      for (int k = 0; k < nt; ++k) {
+        const int c0 = k * kTB, w = width(k), ld = tile_ld<T>(m, k);
+        T* A = base + off[k];
+        for (int q = warp; q < r; q += kTileThreads / 32) {
+          T z = lane < w ? A[lane * ld + (n - c0) + q] : T(0);
+          for (int i = 0; i < w; ++i) {
+            const T zi = __shfl_sync(kFull, z, i) * dinv[c0 + i];
+            if (lane > i) z = fma(-A[i * ld + lane], zi, z);
+            else if (lane == i) z = zi;
+          }
+          if (lane < w) A[lane * ld + (n - c0) + q] = z;
+          xb[q * kTB + lane] = lane < w ? z : T(0);
+        }
+        __syncthreads();
+        const int c1 = c0 + kTB, len = n - c1;
+        for (int e = tid; e < len * r; e += kTileThreads) {
+          const int c = c1 + e % len, q = e / len;
+          const T* Lc = A + (c - c0);
+          const T* zq = xb + q * kTB;
+          T acc[4] = {T(0), T(0), T(0), T(0)};
+          for (int i = 0; i < w; i += 4) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[u] = fma(Lc[(i + u) * ld], zq[i + u], acc[u]);
+          }
+          const int t = c / kTB, d0 = t * kTB;
+          base[off[t] + (c - d0) * tile_ld<T>(m, t) + (n - d0) + q] -=
+              (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        }
+        __syncthreads();
+      }
+      backward();
+      store_x(true);
     }
-    for (int q = tid; q < r; q += nt)
-      Xs[static_cast<size_t>(i) * r + q] = Z[q * n + i] * di;
-    __syncthreads();
   }
+  if (P > 1) cluster_sync();     // no CTA leaves while its tiles are read
 }
 
 template <typename K>
@@ -682,58 +1098,66 @@ int launch_warp(const T* H, const T* G, T* X, int N, int n, int r,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The tiled variants: block (variant 0) in one CTA, global (variant 1) in
+// the smallest cluster of 2 .. kMaxCluster CTAs whose shares fit.  Refuses
+// (cudaErrorInvalidValue, nothing launched) what does not fit: a block
+// variant beyond one CTA's shared memory, a global one beyond a cluster's,
+// or a cluster the card cannot hold (cudaOccupancyMaxActiveClusters).
+constexpr int kTileSmem = kMaxSmem - 1024;   // static tables kept aside
+
 template <typename T>
-int launch_block(const T* H, const T* G, T* X, int N, int n, int r,
-                 cudaStream_t stream) {
-  constexpr int W = Vec<T>::W;
-  const bool one = r == 1;
-  const int m = one ? n + 1 : n;
-  const size_t smem =
-      sizeof(T) * (static_cast<size_t>(m) * row_stride(n, W) +
-                   round_up(n, W) + (one ? 0 : static_cast<size_t>(n) * r));
-  if (smem > static_cast<size_t>(kMaxSmem))
+int launch_tiles(const T* H, const T* G, T* X, int N, int n, int r,
+                 int variant, cudaStream_t stream) {
+  if (n > kMaxTiles * kTB || (variant != 0 && variant != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = one ? chol_block_kernel<T, true> : chol_block_kernel<T, false>;
+  int P = 1;
+  if (variant == 1)
+    for (P = 2; P <= kMaxCluster; ++P)
+      if (tile_smem<T>(n, r, P) <= static_cast<size_t>(kTileSmem)) break;
+  const size_t smem = tile_smem<T>(n, r, P);
+  if (P > kMaxCluster || smem > static_cast<size_t>(kTileSmem) ||
+      static_cast<long long>(N) * P > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = chol_tile_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<N, 32, smem, stream>>>(H, G, X, N, n, r);
+  if (P == 1) {
+    kernel<<<N, kTileThreads, smem, stream>>>(H, G, X, n, r, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(N * P));
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, H, G, X, n, r, P)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The global variant's shared bytes: a staged panel of all m = n + r rows
-// (or the r z columns, if larger) and the n inverse pivots.
-template <typename T>
-size_t global_smem(int n, int r) {
-  const size_t m = static_cast<size_t>(n) + r;
-  const size_t panel = m * kPanelLd;
-  const size_t zs = static_cast<size_t>(r) * n;
-  return sizeof(T) * ((panel > zs ? panel : zs) + n);
-}
-
-template <typename T>
-int launch_global(const T* H, const T* G, T* X, T* W, int N, int n, int r,
-                  void* stream) {
-  if (N <= 0 || n <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = global_smem<T>(n, r);
-  if (smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = chol_global_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<N, kPanelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      H, G, X, W, N, n, r);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// variant: the class (32, 48 or 64 rows; float64 has 64 only), or 0 for
-// the block variant.
+// variant: the class (32, 48 or 64 rows; float64 has 64 only), 0 for the
+// block variant, 1 for the global one.
 template <typename T>
 int launch(const T* H, const T* G, T* X, int N, int n, int r, int variant,
            void* stream) {
   // an empty batch is the caller's to skip: it launches nothing
   if (N <= 0 || n <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 0) return launch_block(H, G, X, N, n, r, st);
+  if (variant == 0 || variant == 1)
+    return launch_tiles(H, G, X, N, n, r, variant, st);
   if (variant == 64) return launch_warp<T, 64>(H, G, X, N, n, r, st);
   if constexpr (sizeof(T) == 4) {
     if (variant == 32) return launch_warp<T, 32>(H, G, X, N, n, r, st);
@@ -756,20 +1180,10 @@ int omg_chol_solve_f32(const float* H, const float* G, float* X, int N, int n,
                        int r, int variant, void* stream) {
   return launch(H, G, X, N, n, r, variant, stream);
 }
-// The global variant: the same X, factored in W, a workspace of
-// N (n + r) n elements.
-int omg_chol_solve_ws_f32(const float* H, const float* G, float* X, float* W,
-                          int N, int n, int r, void* stream) {
-  return launch_global(H, G, X, W, N, n, r, stream);
-}
 #else
 int omg_chol_solve_f64(const double* H, const double* G, double* X, int N,
                        int n, int r, int variant, void* stream) {
   return launch(H, G, X, N, n, r, variant, stream);
-}
-int omg_chol_solve_ws_f64(const double* H, const double* G, double* X,
-                          double* W, int N, int n, int r, void* stream) {
-  return launch_global(H, G, X, W, N, n, r, stream);
 }
 #endif
 

@@ -4,11 +4,10 @@
 For every (vehicle shape x obstacle) pair a separating hyperplane
 a(tau).p = b(tau) is introduced as degree-1 spline variables on the
 vehicle's knot lattice with ||a||^2 <= 1, and both parties (vehicle +
-obstacle) receive their half-space constraints.  The host simulation
-advances the obstacles and reflects bouncing ones off other obstacles and
-the room borders.
-
-Not ported yet: inter-vehicle avoidance (the fleet path).
+obstacle) receive their half-space constraints.  Inter-vehicle avoidance
+shares one plane (a, b) / (-a, -b) between two vehicles, on the union of
+their knots.  The host simulation advances the obstacles and reflects
+bouncing ones off other obstacles and the room borders.
 """
 
 from __future__ import annotations
@@ -156,6 +155,46 @@ class Environment(OptiChild):
             a_init[i] = a0
             b_init[i, 0] = b0
         return a_init, b_init
+
+    def define_intervehicle_collision_constraints(self, vehicles,
+                                                  horizon_times):
+        """A separating hyperplane between every pair of vehicle shapes, in
+        every segment: degree-1 spline variables a, b on the union of the
+        two vehicles' inner knots with ||a||^2 <= 1; the first vehicle
+        keeps a.p <= b, the second the mirrored plane (-a, -b)."""
+        if not isinstance(horizon_times, list):
+            horizon_times = [horizon_times] * vehicles[0].n_seg
+        for idx in range(vehicles[0].n_seg):
+            hyp_veh = {veh: {sh: [] for sh in veh.shapes} for veh in vehicles}
+            for k in range(len(vehicles)):
+                for l in range(k + 1, len(vehicles)):
+                    veh1, veh2 = vehicles[k], vehicles[l]
+                    if veh1.n_dim != veh2.n_dim:
+                        raise ValueError("vehicle dimension mismatch")
+                    degree = 1
+                    knots = np.r_[np.zeros(degree), np.union1d(
+                        veh1.knots[veh1.degree:-veh1.degree],
+                        veh2.knots[veh2.degree:-veh2.degree]),
+                        np.ones(degree)]
+                    basis = Basis(knots, degree)
+                    for kk, shape1 in enumerate(veh1.shapes):
+                        for ll, shape2 in enumerate(veh2.shapes):
+                            tag = (f"{veh1.label}_seg{idx}_{kk}_"
+                                   f"{veh2.label}_{ll}")
+                            a = self.define_spline_variable(
+                                "a_" + tag, self.n_dim, basis=basis)
+                            b = self.define_spline_variable(
+                                "b_" + tag, 1, basis=basis)[0]
+                            self.define_constraint(
+                                sum(a[p] * a[p] for p in range(self.n_dim))
+                                - 1, -BIG, 0.0)
+                            hyp_veh[veh1][shape1].append({"a": a, "b": b})
+                            hyp_veh[veh2][shape2].append(
+                                {"a": [-ai for ai in a], "b": -1 * b})
+            for vehicle in vehicles:
+                vehicle.define_collision_constraints(
+                    hyp_veh[vehicle], self.room[idx], vehicle.splines[idx],
+                    horizon_times[idx])
 
     # -- simulation --------------------------------------------------------
     def simulate(self, simulation_time, sample_time):

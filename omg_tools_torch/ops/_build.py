@@ -31,11 +31,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "chol_solve": {
         "omg_chol_solve_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-        "omg_chol_solve_ws_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "chol_solve_f64": {
         "omg_chol_solve_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
-        "omg_chol_solve_ws_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "fused_alm": {
         "omg_fused_inner_f32": (_P,) * 10 + (_I, _P, _P, _P, _I, _I, _I,

@@ -6,15 +6,16 @@
 A wrapper given CPU tensors runs its plain PyTorch version; given CUDA
 tensors (float32 or float64) it launches the hand-written Hopper kernel of
 ``csrc/chol_solve.cu`` in the variant that ``variant`` picks, and raises on
-what the kernel does not take.  A system too large for a block's shared
-memory takes the ``global`` variant, which factors it in a global-memory
-workspace that the wrapper allocates (n + r rows of n a system).  Each wrapper counts its kernel launches in
-a plain integer attribute, ``launches``; K1 also counts them by the number
-of systems a launch solves, in the Counter ``psd_solve.by_systems``.  A K1
-call made while a CUDA graph is being captured launches nothing and counts
-in ``psd_solve.captured`` (and ``captured_by_systems``) instead, and each
-replay of that graph adds its calls to ``launches`` and ``by_systems``
-(``ops.alm.CapturedCall``).
+what the kernel does not take.  Systems above the register classes take
+the tiled variants: ``block`` keeps a system's lower triangle in one CTA's
+shared memory, ``global`` spreads a larger one over a thread-block cluster
+(2-8 CTAs, each holding some of its column tiles).  Each wrapper counts
+its kernel launches in a plain integer attribute, ``launches``; K1 also
+counts them by the number of systems a launch solves, in the Counter
+``psd_solve.by_systems``.  A K1 call made while a CUDA graph is being
+captured launches nothing and counts in ``psd_solve.captured`` (and
+``captured_by_systems``) instead, and each replay of that graph adds its
+calls to ``launches`` and ``by_systems`` (``ops.alm.CapturedCall``).
 
 A system that is not positive definite gives non-finite output -- rsqrt of
 a non-positive pivot -- in both versions, never an error: the ALM's per-lane
@@ -34,21 +35,22 @@ __all__ = ["psd_solve", "psd_solve_multi", "psd_solve_plain",
 
 # the kernel's variants and the code its C entry point takes for each: the
 # register classes by the rows a warp holds (n, plus the augmented row g'
-# when r = 1; float64 has the 64-row class only), then one system a block
-# in shared memory for anything larger, then one system a block in a
-# global-memory workspace (an entry point of its own, no code)
-VARIANTS = {"reg32": 32, "reg48": 48, "reg64": 64, "block": 0,
-            "global": None}
+# when r = 1; float64 has the 64-row class only), then one system a CTA,
+# its column tiles in shared memory, then one system a cluster of CTAs
+VARIANTS = {"reg32": 32, "reg48": 48, "reg64": 64, "block": 0, "global": 1}
 _CLASSES = {torch.float32: ("reg32", "reg48", "reg64"),
             torch.float64: ("reg64",)}
-# the library (``csrc/<name>.cu``) and C entry points (the variants with a
-# code, the global variant) of each element type
-_ENTRY = {torch.float32: ("chol_solve", "omg_chol_solve_f32",
-                          "omg_chol_solve_ws_f32"),
-          torch.float64: ("chol_solve_f64", "omg_chol_solve_f64",
-                          "omg_chol_solve_ws_f64")}
-# a block's shared memory on sm_90 (kMaxSmem in csrc/chol_solve.cu)
+# the library (``csrc/<name>.cu``) and C entry point of each element type
+_ENTRY = {torch.float32: ("chol_solve", "omg_chol_solve_f32"),
+          torch.float64: ("chol_solve_f64", "omg_chol_solve_f64")}
+# a block's shared memory on sm_90 (kMaxSmem in csrc/chol_solve.cu), and
+# the block variant's constants (kTileSmem, kTB, kSLD, kMaxTiles there);
+# the cluster's layout is the C side's alone
 MAX_SMEM = 232448
+TILE_SMEM = MAX_SMEM - 1024
+TILE = 32
+TILE_SCRATCH_LD = TILE + 4
+MAX_TILES = 64
 
 
 def chol_solve_plain(H, G):
@@ -86,26 +88,39 @@ def psd_solve_multi_plain(D, G):
     return X.reshape(G.shape)
 
 
-def block_smem(n, r, itemsize):
-    """The shared bytes of the block variant at (n, r): the rows of the
-    lower triangle (and g' when r = 1) at csrc/chol_solve.cu's row stride,
-    the inverse pivots and, for r > 1, the panel (``launch_block``)."""
+def _round4(x):
+    return -(-x // 4) * 4
+
+
+def tile_ld(m, j, itemsize):
+    """Tile j's column stride (elements): rows j TILE .. m - 1 rounded up
+    to 4, then to an odd number of 16-byte units (``tile_ld``)."""
     w = 16 // itemsize
-    ld = -(-n // w) * w
+    ld = _round4(m - j * TILE)
     if (ld // w) % 2 == 0:
         ld += w
-    rows = n + 1 if r == 1 else n
-    return itemsize * (rows * ld + -(-n // w) * w + (0 if r == 1 else n * r))
+    return ld
+
+
+def block_smem(n, r, itemsize):
+    """The dynamic shared bytes of the block variant at (n, r), as
+    ``tile_smem`` counts them on one CTA: all of the system's tiles, the
+    diagonal block's scratch, the inverse pivots, one tile's x."""
+    m = n + r
+    tiles = sum(TILE * tile_ld(m, j, itemsize)
+                for j in range(-(-n // TILE)))
+    return itemsize * (tiles + TILE * TILE_SCRATCH_LD + _round4(n)
+                       + TILE * r)
 
 
 def variant(n, r, dtype=torch.float32):
     """The kernel variant that solves (n, n) systems with r right-hand
     sides: the smallest register class of ``dtype`` that holds n rows
     (n + 1 for r = 1, whose right-hand side rides along as an augmented
-    row), else ``block`` where the system fits a block's shared memory,
-    else ``global``.  The C entry points check again and refuse a system
-    their variant does not take (the global one: n + r rows whose staged
-    panel exceeds shared memory, ~870 float64 rows)."""
+    row), else ``block`` where the system's tiles fit one CTA's shared
+    memory, else ``global``.  The C entry point checks again and refuses
+    a system its variant does not take (the global one: beyond a cluster
+    of 8 CTAs, ~439 float64 or ~691 float32 rows)."""
     if dtype not in _ENTRY:
         raise TypeError(f"the kernels take float32 or float64, not {dtype}")
     rows = n + (r == 1)
@@ -113,7 +128,8 @@ def variant(n, r, dtype=torch.float32):
         if rows <= VARIANTS[name]:
             return name
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return "block" if block_smem(n, r, itemsize) <= MAX_SMEM else "global"
+    fits = n <= MAX_TILES * TILE and block_smem(n, r, itemsize) <= TILE_SMEM
+    return "block" if fits else "global"
 
 
 def _check(H, R):
@@ -132,24 +148,14 @@ def _check(H, R):
 
 
 def _launch(H, R, out, N, n, r):
-    """Launch through the C entry point of the variant ``variant`` picks;
+    """Launch through the C entry point in the variant ``variant`` picks;
     it refuses (cudaErrorInvalidValue, nothing launched) a variant that
-    does not fit, such as a system too large for a block's shared memory.
-    The global variant factors in a workspace allocated here (inside a
-    CUDA graph's capture, from the graph's pool)."""
-    source, entry, entry_ws = _ENTRY[H.dtype]
+    does not fit, such as a system too large for a cluster."""
+    source, entry = _ENTRY[H.dtype]
     lib = _build.load(source)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    name = variant(n, r, H.dtype)
-    if name == "global":
-        work = torch.empty(N * (n + r) * n, dtype=H.dtype, device=H.device)
-        err = getattr(lib, entry_ws)(H.data_ptr(), R.data_ptr(),
-                                     out.data_ptr(), work.data_ptr(), N, n,
-                                     r, stream)
-    else:
-        err = getattr(lib, entry)(H.data_ptr(), R.data_ptr(),
-                                  out.data_ptr(), N, n, r, VARIANTS[name],
-                                  stream)
+    err = getattr(lib, entry)(H.data_ptr(), R.data_ptr(), out.data_ptr(), N,
+                              n, r, VARIANTS[variant(n, r, H.dtype)], stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed (cudaError {err})")
 

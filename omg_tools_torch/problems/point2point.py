@@ -58,6 +58,9 @@ class Point2pointProblem(Problem):
             vehicle.define_trajectory_constraints(splines[0], self.T)
             self.environment.define_collision_constraints(vehicle, splines,
                                                           self.T)
+        if len(self.vehicles) > 1 and self.options["inter_vehicle_avoidance"]:
+            self.environment.define_intervehicle_collision_constraints(
+                self.vehicles, self.T)
 
     def define_init_constraints(self):
         for vehicle in self.vehicles:
@@ -271,6 +274,9 @@ class FreeTPoint2point(Point2pointProblem):
             vehicle.define_trajectory_constraints(splines[0], self.T)
             self.environment.define_collision_constraints(vehicle, splines,
                                                           self.T)
+        if len(self.vehicles) > 1 and self.options["inter_vehicle_avoidance"]:
+            self.environment.define_intervehicle_collision_constraints(
+                self.vehicles, self.T)
         self.define_objective(self.T)
         self.define_constraint(-self.T, -BIG, 0.0)
         self.define_init_constraints()

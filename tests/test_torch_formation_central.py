@@ -16,7 +16,7 @@ largest move of the JAX package's own solve over 5 draws of a 1e-15
 relative perturbation of that start (tests/test_torch_free_time.py's
 rule), or 1e-10 where rounding alone separates them, and so is the
 spread of its fleet centres (zero on the guess).  On the card (``gpu``):
-the captured Newton step of this NLP (K1's global variant) equals the
+the captured Newton step of this NLP (K1's block variant) equals the
 eager one, and a full-budget solve keeps the centres within 1e-3 m
 (tests/test_distributed.py:47-53).
 """
@@ -207,7 +207,7 @@ REPLAY_RTOL = 1e-12
 
 @pytest.mark.gpu
 def test_cuda_captured_central_step_equals_eager(cuda_device):
-    """The central formation's generic Newton step (n_x 203: K1's global
+    """The central formation's generic Newton step (n_x 203: K1's block
     variant) replayed from a CUDA graph equals the eager step, one K1
     launch a replay."""
     from omg_tools_torch.ops import psd_kernels as pk
@@ -216,7 +216,7 @@ def test_cuda_captured_central_step_equals_eager(cuda_device):
     p.init()
     tr, solver = p.transcription, p._solver
     assert tr.n_x == 203
-    assert pk.variant(tr.n_x, 1, torch.float64) == "global"
+    assert pk.variant(tr.n_x, 1, torch.float64) == "block"
     dev = dict(dtype=torch.float64, device=cuda_device)
     x = tr.initial_guess() + 1e-2 * np.random.default_rng(5).standard_normal(
         tr.n_x)

@@ -14,8 +14,8 @@ eager one.
 
 Scenes: the examples' p2p_dubins and p2p_bicycle (``chip_smoke.build_scene``),
 tests/test_vehicles.py's AGV and Trailer, the examples'
-p2p_holonomic_warehouse (free time, n_x 395: held on the CPU only, K1's
-shared-memory variant takes at most ~168 rows) and a FreeEndPoint2point
+p2p_holonomic_warehouse (free time, n_x 395: held on the CPU only; on
+the card its Newton system takes K1's global variant) and a FreeEndPoint2point
 with the terminal y free.
 
 Tolerances: the layouts, parameters, guesses and bounds equal; f, g and J

@@ -35,6 +35,33 @@ EDGE_K2 = [(3, 32, 32), (3, 33, 33), (2, 64, 2), (2, 65, 3)]
 # every class and its edges, for the kernels on the card
 CARD_N = [1, 8, 26, 31, 32, 33, 64, 65, 151]
 CARD_R = [1, 2, 27, 32, 33]
+# K1's tiled variants at every shape of a path that runs them and of the
+# tests (chip_smoke.py's K1_TILED_SHAPES): (systems, n, dtype, variant)
+TILED_SHAPES = [(1, 178, torch.float64, "block"),
+                (1, 186, torch.float64, "block"),
+                (4, 186, torch.float64, "block"),
+                (1, 203, torch.float64, "block"),
+                (1, 262, torch.float64, "global"),
+                (1, 395, torch.float64, "global"),
+                (1, 262, torch.float32, "block"),
+                (1, 151, torch.float64, "block"),
+                (1, 120, torch.float64, "block"),
+                (1, 111, torch.float64, "block"),
+                (1, 93, torch.float64, "block"),
+                (1, 85, torch.float64, "block"),
+                (4, 85, torch.float64, "block"),
+                (2, 90, torch.float64, "block"),
+                (1024, 190, torch.float32, "block"),
+                (256, 190, torch.float32, "block"),
+                (4096, 151, torch.float32, "block"),
+                (256, 151, torch.float32, "block"),
+                (4, 85, torch.float32, "block"),
+                (1024, 85, torch.float32, "block")]
+# a sweep over the tiled variants' sizes: ragged last tiles (n not a
+# multiple of 32), the edges of one CTA (float64 215/216, float32
+# 315/316) and clusters of 2-7 CTAs
+SWEEP_N = [65, 70, 96, 97, 127, 128, 129, 151, 160, 190, 215, 216, 250,
+           290, 315, 316, 330, 395, 420]
 # the compact-arrow shapes of bench.py's p2p_3dquadrotor (head 42, tail
 # blocks 44 and 14, r = 43) and p2p_dubins (head 54, tail blocks 43, 33,
 # 14 and 13, r = 55): (systems, n, r)
@@ -143,8 +170,11 @@ def test_plain_f64_matches_numpy_solve(B, n, r):
 
 def test_variant_picks_the_size_class():
     """The register class that holds n rows (n + 1 when r = 1: the
-    right-hand side rides along as a row), else the block variant;
-    float64 has the 64-row class only; other types are refused."""
+    right-hand side rides along as a row), else the block variant (a
+    system's column tiles in one CTA's shared memory), else the global
+    one (a cluster's); float64 has the 64-row class only; other types are
+    refused.  Each shape of the paths above the classes takes ``block``
+    but the 262- and 395-row float64 systems."""
     f32, f64 = torch.float32, torch.float64
     assert pk.variant(26, 1, f32) == "reg32"        # K1, main path
     assert pk.variant(33, 27, f32) == "reg48"       # K2, main path
@@ -155,6 +185,10 @@ def test_variant_picks_the_size_class():
         "reg32", "reg48", "reg48", "reg64", "reg64", "block"]
     assert pk.variant(26, 1, f64) == pk.variant(33, 27, f64) == "reg64"
     assert pk.variant(64, 1, f64) == "block"
+    for N, n, dtype, want in TILED_SHAPES:
+        assert pk.variant(n, 1, dtype) == want, (N, n, dtype)
+    assert [pk.variant(n, 1, f64) for n in (215, 216)] == ["block", "global"]
+    assert [pk.variant(n, 1, f32) for n in (315, 316)] == ["block", "global"]
     with pytest.raises(TypeError):
         pk.variant(8, 1, torch.float16)
 
@@ -232,9 +266,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                            .transpose(-1, -2))
     with pytest.raises(ValueError):
         pk.psd_solve(Hd, Gd[..., :3, 0].contiguous())
-    # too large for the kernel's shared-memory layouts (since the global
-    # variant, a staged panel of 2,001 x 33 floats exceeds a block's 227
-    # KB): the C entry point refuses it and nothing is launched
+    # too large for the kernel's shared-memory layouts (since the tiled
+    # variants, 2,000 float32 rows exceed a cluster of 8 CTAs): the C
+    # entry point refuses it and nothing is launched
     before = pk.psd_solve.launches
     big = torch.eye(2000, device=cuda_device)[None].contiguous()
     assert pk.variant(2000, 1, torch.float32) == "global"
@@ -355,9 +389,10 @@ def test_cuda_kernel_runs_the_variant_it_picks(cuda_device):
     cases = [((26, 1), np.float32, "chol_warp_kernel<float, 32, true>"),
              ((33, 27), np.float32, "chol_warp_kernel<float, 48, false>"),
              ((50, 2), np.float32, "chol_warp_kernel<float, 64, false>"),
-             ((151, 1), np.float32, "chol_block_kernel<float, true>"),
+             ((151, 1), np.float32, "chol_tile_kernel<float>"),
              ((33, 27), np.float64, "chol_warp_kernel<double, 64, false>"),
-             ((70, 3), np.float64, "chol_block_kernel<double, false>")]
+             ((70, 3), np.float64, "chol_tile_kernel<double>"),
+             ((262, 1), np.float64, "chol_tile_kernel<double>")]
     for (n, r), dtype, want in cases:
         H, G = _card(4, n, r, 10, cuda_device, dtype)
         _solve(H, G)                       # built and warm
@@ -372,15 +407,17 @@ def test_cuda_kernel_runs_the_variant_it_picks(cuda_device):
 @pytest.mark.gpu
 def test_cuda_entry_point_refuses_what_does_not_fit(cuda_device):
     """A variant too small for n, an unknown variant, a class float64 does
-    not have, an empty batch and a system too large for a block's shared
-    memory: cudaErrorInvalidValue (1), nothing launched, the output left
-    as it was."""
+    not have, an empty batch and a system too large for one CTA's shared
+    memory (the block variant) or a cluster's (the global one):
+    cudaErrorInvalidValue (1), nothing launched, the output left as it
+    was."""
     from omg_tools_torch.ops import _build
     stream = torch.cuda.current_stream().cuda_stream
     cases = [(np.float32, 33, 27, 5, 32), (np.float32, 49, 2, 5, 48),
              (np.float32, 32, 1, 5, 32), (np.float32, 8, 4, 5, 7),
              (np.float64, 8, 4, 5, 32), (np.float32, 8, 4, 0, 32),
-             (np.float32, 300, 1, 1, 0)]
+             (np.float32, 340, 1, 1, 0), (np.float64, 220, 1, 1, 0),
+             (np.float64, 460, 1, 1, 1), (np.float32, 8, 4, 5, 2)]
     for dtype, n, r, N, var in cases:
         H, G = _card(max(N, 1), n, r, 11, cuda_device, dtype)
         X = torch.full_like(G, 7.0)
@@ -426,3 +463,118 @@ def test_cuda_problem_solve_matches_cpu(cuda_device):
     assert got.x.is_cuda and got.x.dtype == torch.float64
     np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(), rtol=0,
                                atol=1e-8)
+
+
+# -- K1's tiled variants (block and global) on the card ----------------------
+
+def _tiled(N, n, r, dtype, device, seed):
+    """SPD systems in ``dtype`` (a torch type) on the card, from numpy."""
+    H, G = _spd(N, n, r, seed, dtype=np.float64)
+    H = H / n + np.eye(n)
+    return (torch.as_tensor(H, device=device, dtype=dtype),
+            torch.as_tensor(G, device=device, dtype=dtype))
+
+
+def _tol(dtype):
+    return TOL_F64 if dtype == torch.float64 else TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,n,dtype,variant", TILED_SHAPES)
+def test_cuda_tiled_variants_at_the_path_shapes(cuda_device, N, n, dtype,
+                                                variant):
+    """K1 at every shape of a path that runs the tiled variants, in the
+    variant ``variant`` picks, against the plain version."""
+    H, G = _tiled(N, n, 1, dtype, cuda_device, n)
+    assert pk.variant(n, 1, dtype) == variant
+    got, want = _solve(H, G)
+    _assert_close(got, want, _tol(dtype), (N, n, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tiled_variants_sweep(cuda_device, dtype):
+    """n from 65 to 420: ragged last tiles, the edge of one CTA, clusters
+    of 2 to 7 CTAs; three systems a launch."""
+    for n in SWEEP_N:
+        H, G = _tiled(3, n, 1, dtype, cuda_device, n)
+        got, want = _solve(H, G)
+        _assert_close(got, want, _tol(dtype),
+                      (n, pk.variant(n, 1, dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tiled_variants_several_right_hand_sides(cuda_device, dtype):
+    """r > 1 above 64 rows (K2's wrapper): r below, at and above a warp's
+    32 lanes, the right-hand sides as r more rows of every tile."""
+    for n, r in ((65, 2), (70, 27), (151, 33), (200, 40), (250, 3),
+                 (395, 5)):
+        H, G = _tiled(2, n, r, dtype, cuda_device, n + r)
+        got, want = _solve(H, G)
+        _assert_close(got, want, _tol(dtype),
+                      (n, r, pk.variant(n, r, dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [85, 151, 262, 395])
+def test_cuda_tiled_variants_non_spd_among_spd(cuda_device, n):
+    """One non-SPD system among eight gives a non-finite solution; every
+    other stays finite and right (one CTA a system, or a cluster)."""
+    H, G = _tiled(8, n, 1, torch.float64, cuda_device, n)
+    H[5, n // 2, n // 2] = -50.0
+    got, want = _solve(H, G)
+    assert not bool(torch.isfinite(got[5]).all()), n
+    keep = torch.arange(8, device=cuda_device) != 5
+    assert bool(torch.isfinite(got[keep]).all()), n
+    _assert_close(got[keep], want[keep], TOL_F64, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,n,dtype", [(1, 151, torch.float64),
+                                       (1, 395, torch.float64),
+                                       (1024, 190, torch.float32)])
+def test_cuda_tiled_variants_captured_replay_equals_eager(cuda_device, N, n,
+                                                          dtype):
+    """K1 captured in a CUDA graph (``ops.alm.CapturedCall``, as the closed
+    loops replay it): a replay equals the eager call bit for bit, on the
+    captured inputs and on new ones copied in; one launch a replay."""
+    from omg_tools_torch.ops.alm import CapturedCall
+    H, G = _tiled(N, n, 1, dtype, cuda_device, 3)
+    g = G[..., 0].contiguous()
+    call = CapturedCall(lambda h, v: (pk.psd_solve(h, v),), (H, g))
+    assert call.k1_launches == 1
+    H2, G2 = _tiled(N, n, 1, dtype, cuda_device, 4)
+    for h, v in ((H, g), (H2, G2[..., 0].contiguous())):
+        eager = pk.psd_solve(h, v)
+        before = pk.psd_solve.launches
+        (replayed,) = call(h, v)
+        torch.cuda.synchronize()
+        assert pk.psd_solve.launches == before + 1
+        assert torch.equal(eager, replayed), (N, n, dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_tiled_variants_refuse_what_does_not_fit(cuda_device):
+    """Through the wrapper, a system beyond a cluster of 8 CTAs raises
+    and launches nothing; through the C entry point, the block variant
+    beyond one CTA and the global one beyond 8 CTAs or 2,048 rows are
+    refused (cudaErrorInvalidValue), the output left as it was."""
+    from omg_tools_torch.ops import _build
+    before = pk.psd_solve.launches
+    H, G = _tiled(1, 460, 1, torch.float64, cuda_device, 5)
+    assert pk.variant(460, 1, torch.float64) == "global"
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pk.psd_solve(H, G[..., 0].contiguous())
+    assert pk.psd_solve.launches == before
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, n, var in ((torch.float64, 216, 0), (torch.float32, 316, 0),
+                          (torch.float64, 440, 1), (torch.float32, 692, 1),
+                          (torch.float32, 2049, 1)):
+        H, G = _tiled(1, n, 1, dtype, cuda_device, 6)
+        X = torch.full_like(G, 7.0)
+        source, entry = pk._ENTRY[dtype]
+        err = getattr(_build.load(source), entry)(
+            H.data_ptr(), G.data_ptr(), X.data_ptr(), 1, n, 1, var, stream)
+        torch.cuda.synchronize()
+        assert err == 1 and bool((X == 7.0).all()), (dtype, n, var, err)

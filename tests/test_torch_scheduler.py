@@ -248,7 +248,7 @@ REPLAY_RTOL = 1e-12
 
 @pytest.mark.gpu
 def test_cuda_captured_scheduler_step_equals_eager(cuda_device):
-    """scheduler2's local problem (n_x 186: K1's global variant) on the
+    """scheduler2's local problem (n_x 186: K1's block variant) on the
     card: its generic Newton step replayed from a CUDA graph equals the
     eager step, before and after a forced frame switch that re-targets
     the cached problem (new room borders and slot parameters copied into
@@ -260,7 +260,7 @@ def test_cuda_captured_scheduler_step_equals_eager(cuda_device):
     p.init()
     local = p.local_problem
     tr, solver = local.transcription, local._solver
-    assert pk.variant(tr.n_x, 1, torch.float64) == "global"
+    assert pk.variant(tr.n_x, 1, torch.float64) == "block"
     dev = dict(dtype=torch.float64, device=cuda_device)
     x = tr.initial_guess() + 1e-2 * np.random.default_rng(5).standard_normal(
         tr.n_x)
